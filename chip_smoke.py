@@ -12,10 +12,14 @@ one JSON line; any failure raises and ends the run:
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    — every kernel of the path compiled from the checkout's
               sources with nvcc (one nvcc per source, started together);
-3. kernel   — hash_scan held bit for bit against hash_scan_reference on
-              the card at the main path's shapes and edge cases, then timed
-              after a warm-up: the median of 5 runs of 20 back-to-back
-              launches, each run between one CUDA event pair;
+3. kernel   — both entries of the scan kernel, hash_scan and the fused
+              tokenize_hash (last_is_boundary True and False), held bit for
+              bit against their plain versions on the card at the main
+              path's shapes and at every edge of the kernel's tiles and
+              look-back; then timed at 4 MiB after a warm-up, as the median
+              of runs of 20 calls between one CUDA event pair, both
+              replayed from a CUDA graph (the device's time) and eager (the
+              host's work per call included), and once at 64 MiB;
 4. main     — a seeded 256 MiB Zipf corpus (4 files) through run_job with
               the default Config (4 MiB chunks, 2^21-key state), reduce_n=8,
               every output line checked against the generator's counts;
@@ -79,22 +83,37 @@ def nvidia_smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup: int, reps: int, groups: int = 5) -> float:
-    """Device time of one fn() call in ms: the median over ``groups`` runs
-    of ``reps`` back-to-back calls, each run between one CUDA event pair
-    (so the host's launch gaps inside a call are not counted as long as
-    the host keeps ahead of the card, as it does on the main path)."""
+def time_ms(fn, warmup: int, reps: int, groups: int = 5, graph: bool = False) -> float:
+    """Time of one fn() call in ms: the median over ``groups`` runs of
+    ``reps`` calls, each run between one CUDA event pair.
+
+    Eager (``graph=False``): the calls run back to back from the host, so
+    the time includes the host's work per call whenever that is longer
+    than the card's. Graph (``graph=True``): the ``reps`` calls are
+    captured once into a CUDA graph and each run replays it, so the time
+    is the device's alone (launches and memsets, no host work)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()  # the first replay uploads the graph
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
     times = []
     for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -110,13 +129,11 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = cuda_build.build_all(["hash_scan.cu"])
-    for b in builds:
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {b.source}] {line.strip()}", file=sys.stderr)
+    ptxas = [f"{b.source}: {line.strip()}" for b in builds for line in b.log.splitlines()
+             if "registers" in line or "spill" in line]
     emit({"phase": "build", "arch": cuda_build.ARCH,
           "seconds": time.perf_counter() - t0,
-          "sources": {b.source: b.seconds for b in builds}})
+          "sources": {b.source: b.seconds for b in builds}, "ptxas": ptxas})
 
 
 def _text_bytes(n: int, gen) -> "torch.Tensor":
@@ -127,17 +144,22 @@ def _text_bytes(n: int, gen) -> "torch.Tensor":
     return torch.where(spaces, torch.full_like(letters, 32), letters)
 
 
-def phase_kernel() -> dict:
+def _no_space_bytes(n: int, gen) -> "torch.Tensor":
+    """Random bytes with every whitespace byte replaced by a word char:
+    word chars, punctuation and bytes >= 0x80, never a reset."""
     import torch
 
-    from mapreduce_rust_tpu_torch.ops.tokenize_cuda import (
-        BYTES_PER_INPUT_BYTE,
-        REPLACES,
-        hash_scan,
-        hash_scan_reference,
-    )
+    x = torch.randint(0, 256, (n,), dtype=torch.uint8, generator=gen)
+    is_ws = (x == 32) | ((x >= 9) & (x <= 13))
+    return torch.where(is_ws, torch.full_like(x, ord("a")), x)
 
-    gen = torch.Generator().manual_seed(0)
+
+def kernel_cases(gen, tile: int) -> dict:
+    """The inputs both entries are held bit for bit against their plain
+    versions on: the main path's 4 MiB chunk, and every edge of the
+    kernel's design (tile edges, look-back chains, ragged ends)."""
+    import torch
+
     n_main = 4 << 20  # Config.chunk_bytes: the main path's chunk
     cases = {
         "random_4MiB": torch.randint(0, 256, (n_main,), dtype=torch.uint8, generator=gen),
@@ -145,49 +167,106 @@ def phase_kernel() -> dict:
         "one_byte": torch.tensor([ord("a")], dtype=torch.uint8),
         "random_16KiB+7": torch.randint(0, 256, ((16 << 10) + 7,), dtype=torch.uint8,
                                         generator=gen),
+        "text_tile-1": _text_bytes(tile - 1, gen),
+        "text_tile+1": _text_bytes(tile + 1, gen),
     }
-    # Tokens straddling every 4 KiB kernel tile edge and 16 KiB TPU block
-    # edge, and one whitespace-free run spanning many tiles.
+    # Tokens straddling every kernel tile edge (and so every 16 KiB TPU
+    # block edge).
     edges = torch.full((1 << 20,), 32, dtype=torch.uint8)
-    for e in range(4096, 1 << 20, 4096):
+    for e in range(tile, 1 << 20, tile):
         edges[e - 5: e + 6] = torch.tensor(list(b"straddle_Xy"), dtype=torch.uint8)
     cases["tile_edges_1MiB"] = edges
     run = _text_bytes(n_main, gen)
     run[100_000: 100_000 + 50_000] = 97
     cases["ws_free_run_4MiB"] = run
-    worst = 0
+    # No whitespace at all: no tile holds a reset, so every look-back runs
+    # to the nearest tile that has published its inclusive prefix.
+    cases["ws_free_4MiB"] = _no_space_bytes(n_main, gen)
+    # Whitespace only in the last, or only in the first, byte of each tile
+    # (the ragged last tile included).
+    last = _no_space_bytes((1 << 20) + 100, gen)
+    last[tile - 1:: tile] = 32
+    last[-1] = 32
+    cases["ws_last_byte_of_tiles"] = last
+    first = _no_space_bytes((1 << 20) + 100, gen)
+    first[::tile] = 10
+    cases["ws_first_byte_of_tiles"] = first
+    return cases
+
+
+def _max_abs_err(got, want) -> int:
+    import torch
+
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+
+
+def phase_kernel() -> list[dict]:
+    """Both entries bit-exact against their plain versions on every case,
+    then timed at 4 MiB (graph replay and eager) and once at 64 MiB."""
+    import torch
+
+    from mapreduce_rust_tpu_torch.ops import tokenize_cuda as tc
+
+    gen = torch.Generator().manual_seed(0)
+    cases = kernel_cases(gen, tc.TILE_BYTES)
+    worst = {"hash_scan": 0, "tokenize_hash": 0}
     for name, host in cases.items():
         x = host.cuda()
-        got = hash_scan(x)
-        want = hash_scan_reference(x)
+        pairs = [("hash_scan", None, tc.hash_scan(x), tc.hash_scan_reference(x))]
+        for lib in (True, False):
+            pairs.append(("tokenize_hash", lib, tc.tokenize_hash(x, lib),
+                          tc.tokenize_hash_reference(x, lib)))
         torch.cuda.synchronize()
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"hash_scan disagrees with its plain version on {name} (max |diff| {err})")
-        worst = max(worst, err)
+        for entry, lib, got, want in pairs:
+            err = _max_abs_err(got, want)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{entry} (last_is_boundary={lib}) disagrees with its plain version "
+                  f"on {name} (max |diff| {err})")
+            worst[entry] = max(worst[entry], err)
+
+    n_main = cases["random_4MiB"].numel()
     x = cases["random_4MiB"].cuda()
-    ms = time_ms(lambda: hash_scan(x), warmup=5, reps=20)
-    plain_ms = time_ms(lambda: hash_scan_reference(x), warmup=1, reps=2, groups=3)
-    nbytes = BYTES_PER_INPUT_BYTE * n_main
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = SCAN_OPS_PER_BYTE * n_main / ALU_OPS_PER_S * 1e3
-    row = {
-        "name": "hash_scan", "route": "cuda",
-        "source": "mapreduce_rust_tpu_torch/ops/csrc/hash_scan.cu",
-        "replaces": REPLACES, "launches": None, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        # No single PyTorch call computes this segmented hash scan.
-        "library_ms": None,
+    n_big = 64 << 20
+    big = torch.randint(0, 256, (n_big,), dtype=torch.uint8, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    entries = {
+        "hash_scan": (tc.hash_scan, tc.hash_scan_reference, (), tc.BYTES_PER_INPUT_BYTE),
+        "tokenize_hash": (tc.tokenize_hash, tc.tokenize_hash_reference, (True,),
+                          tc.FUSED_BYTES_PER_INPUT_BYTE),
     }
-    emit({"phase": "kernel", "kernel": "hash_scan", "cases": list(cases),
-          "bit_exact": True, "n_bytes": n_main, "ms": ms, "plain_ms": plain_ms,
-          "input_GB_per_s": n_main / ms / 1e6,
-          "moved_GB_per_s": nbytes / ms / 1e6,
-          "bound_ms": row["bound_ms"], "bound_figure": HBM_FIGURE,
-          "bytes_per_input_byte": BYTES_PER_INPUT_BYTE})
-    return row
+    rows = []
+    for entry, (fn, ref, args, bytes_per_byte) in entries.items():
+        graph_ms = time_ms(lambda: fn(x, *args), warmup=5, reps=20, graph=True)
+        eager_ms = time_ms(lambda: fn(x, *args), warmup=5, reps=20)
+        plain_ms = time_ms(lambda: ref(x, *args), warmup=1, reps=2, groups=3)
+        big_ms = time_ms(lambda: fn(big, *args), warmup=2, reps=5, groups=3, graph=True)
+        bytes_ms = bytes_per_byte * n_main / HBM_BYTES_PER_S * 1e3
+        ops_ms = SCAN_OPS_PER_BYTE * n_main / ALU_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        big_bound_ms = bytes_per_byte * n_big / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": entry, "route": "cuda",
+            "source": "mapreduce_rust_tpu_torch/ops/csrc/hash_scan.cu",
+            "replaces": tc.REPLACES, "launches": None, "max_abs_err": worst[entry],
+            "ms": graph_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # No single PyTorch call computes this segmented hash scan.
+            "library_ms": None,
+        })
+        emit({"phase": "kernel", "kernel": entry, "cases": list(cases), "bit_exact": True,
+              "last_is_boundary": [True, False] if args else None,
+              "n_bytes": n_main, "graph_ms": graph_ms, "eager_ms": eager_ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_share": bound_ms / graph_ms,
+              "bound_figure": HBM_FIGURE, "bytes_per_input_byte": bytes_per_byte,
+              "input_GB_per_s": n_main / graph_ms / 1e6,
+              "moved_GB_per_s": bytes_per_byte * n_main / graph_ms / 1e6,
+              # 4 MiB of input and its outputs (~50 MiB) nearly fit the 50 MB
+              # L2 across back-to-back calls; 64 MiB does not.
+              "n_bytes_big": n_big, "graph_ms_big": big_ms,
+              "bound_share_big": big_bound_ms / big_ms,
+              "moved_GB_per_s_big": bytes_per_byte * n_big / big_ms / 1e6})
+    return rows
 
 
 def write_zipf_corpus(dirpath: pathlib.Path):
@@ -242,23 +321,23 @@ def drive_job(name: str, corpus: pathlib.Path, work: pathlib.Path, truth, **cfg_
     import torch
 
     from mapreduce_rust_tpu_torch.config import Config
-    from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan
+    from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
     from mapreduce_rust_tpu_torch.runtime.driver import run_job
 
     cfg = Config(input_dir=str(corpus), output_dir=str(work / f"{name}-out"),
                  work_dir=str(work / f"{name}-work"), reduce_n=8, **cfg_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hash_scan.launches = 0
+    hash_scan.launches = tokenize_hash.launches = 0
     res = run_job(cfg)
-    launches = hash_scan.launches
+    launches = {"hash_scan": hash_scan.launches, "tokenize_hash": tokenize_hash.launches}
     s = res.stats
     check(s.unknown_keys == 0, f"{name}: {s.unknown_keys} unknown keys")
     check(s.hash_collisions == 0, f"{name}: {s.hash_collisions} hash collisions")
     lines = check_zipf_outputs(res.output_files, truth)
-    check(launches >= s.chunks, f"{name}: hash_scan launched {launches} times "
-          f"for {s.chunks} chunks")
-    out = {"phase": name, "exact": True, "launches": {"hash_scan": launches},
+    check(launches["tokenize_hash"] >= s.chunks, f"{name}: tokenize_hash launched "
+          f"{launches['tokenize_hash']} times for {s.chunks} chunks")
+    out = {"phase": name, "exact": True, "launches": launches,
            "wall_s": s.wall_seconds, "GB_per_s": s.gb_per_s, "bytes_in": s.bytes_in,
            "chunks": s.chunks, "device_wait_s": s.device_wait_s,
            "ingest_wait_s": s.ingest_wait_s, "distinct_keys": s.distinct_keys,
@@ -375,7 +454,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     phase_build()
-    row = phase_kernel()
+    rows = phase_kernel()
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     try:
@@ -395,11 +474,15 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    row["launches"] = main_run["launches"]["hash_scan"]
-    check(row["launches"] > 0, "the main path never launched hash_scan")
+    # The main path runs the fused entry; hash_scan is held and timed above
+    # but no longer launched there.
+    for row in rows:
+        row["launches"] = main_run["launches"][row["name"]]
+    check(main_run["launches"]["tokenize_hash"] > 0,
+          "the main path never launched tokenize_hash")
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
-    emit({"kernels": [row]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

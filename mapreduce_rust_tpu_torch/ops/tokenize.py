@@ -1,20 +1,21 @@
 """On-device tokenize→hash: bytes to token-hash records.
 
 The port of ``mapreduce_rust_tpu/ops/tokenize.py::tokenize_and_hash``. The
-segmented hash scan is ops/tokenize_cuda.hash_scan — the hand-written CUDA
-kernel on a CUDA chunk, its plain PyTorch version on a CPU chunk. The
+work is ops/tokenize_cuda.tokenize_hash: on a CUDA chunk one launch of the
+hand-written kernel, which scans the token hashes and derives the token
+ends in the same pass; on a CPU chunk its plain PyTorch version. The
 kernel takes any length, so there is no block-multiple eligibility test
-and no second scan path. Token ends are derived from the scan exactly as
-the reference does: a non-whitespace byte followed by whitespace (or the
-chunk's end, when ``last_is_boundary``) with at least one word char.
+and no second scan path. Token ends are those of the reference: a
+non-whitespace byte followed by whitespace (or the chunk's end, when
+``last_is_boundary``) with at least one word char.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mapreduce_rust_tpu_torch.core.kv import SENTINEL_I32, KVBatch
-from mapreduce_rust_tpu_torch.ops.tokenize_cuda import byte_classes, hash_scan
+from mapreduce_rust_tpu_torch.core.kv import KVBatch
+from mapreduce_rust_tpu_torch.ops.tokenize_cuda import tokenize_hash
 
 
 def tokenize_and_hash(chunk: torch.Tensor, last_is_boundary: bool = True) -> KVBatch:
@@ -28,14 +29,4 @@ def tokenize_and_hash(chunk: torch.Tensor, last_is_boundary: bool = True) -> KVB
     Returns a KVBatch[N]: valid entries sit at token-end byte positions
     with value 1 (one occurrence); every other slot is SENTINEL padding.
     """
-    h1, h2, cnt = hash_scan(chunk)
-    is_ws, _ = byte_classes(chunk)
-    last = torch.full((1,), last_is_boundary, dtype=torch.bool, device=chunk.device)
-    next_is_ws = torch.cat([is_ws[1:], last])
-    valid = ~is_ws & next_is_ws & (cnt > 0)
-    return KVBatch(
-        k1=torch.where(valid, h1, SENTINEL_I32),
-        k2=torch.where(valid, h2, SENTINEL_I32),
-        value=valid.to(torch.int32),
-        valid=valid,
-    )
+    return KVBatch(*tokenize_hash(chunk, last_is_boundary))

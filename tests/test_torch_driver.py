@@ -24,7 +24,7 @@ from mapreduce_rust_tpu.runtime.driver import run_job as jax_run_job
 from mapreduce_rust_tpu_torch.__main__ import main as cli_main
 from mapreduce_rust_tpu_torch.config import NOT_PORTED, Config
 from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
-from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan
+from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
 from mapreduce_rust_tpu_torch.runtime.chunker import chunk_stream
 from mapreduce_rust_tpu_torch.runtime.driver import merge_outputs, run_job
 
@@ -93,9 +93,10 @@ def assert_same_files(want, got):
 @pytest.mark.parametrize("reduce_n", [1, 4])
 def test_output_parity(corpus, reference, tmp_path, reduce_n):
     ref = reference("parity", reduce_n)
-    before = hash_scan.launches
+    before = hash_scan.launches, tokenize_hash.launches
     res = run_job(port_config(corpus, tmp_path, "parity", reduce_n))
-    assert hash_scan.launches == before  # the CPU path never launches the kernel
+    # The CPU path never launches the kernel.
+    assert (hash_scan.launches, tokenize_hash.launches) == before
     assert_same_files(ref.output_files, res.output_files)
     assert res.stats.distinct_keys == ref.stats.distinct_keys
     assert res.stats.unknown_keys == ref.stats.unknown_keys == 0

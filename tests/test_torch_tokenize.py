@@ -5,7 +5,7 @@ its PyTorch counterpart; every output is an integer array, so the
 tolerance is exact equality. The JAX Pallas kernel runs in interpret mode
 on the CPU, as tests/test_tokenize.py runs it; the port runs the kernel's
 plain version (CPU tensors). The CUDA kernel itself is held against the
-plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -19,9 +19,12 @@ from mapreduce_rust_tpu.ops.tokenize_pallas import BLOCK, hash_scan_pallas
 from mapreduce_rust_tpu_torch.core import hashing as port_hashing
 from mapreduce_rust_tpu_torch.ops.tokenize import tokenize_and_hash
 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import (
+    TILE_BYTES,
     byte_classes,
     hash_scan,
     hash_scan_reference,
+    tokenize_hash,
+    tokenize_hash_reference,
 )
 
 
@@ -34,15 +37,33 @@ def _straddle_block() -> np.ndarray:
     return data
 
 
+def _no_space(n: int, seed: int) -> np.ndarray:
+    """Random bytes with every whitespace byte made a word char."""
+    data = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+    data[np.isin(data, np.frombuffer(port_hashing.WHITESPACE_BYTES, np.uint8))] = ord("a")
+    return data
+
+
+def _tile_edge_spaces(n: int, where: str) -> np.ndarray:
+    """Whitespace only in the first, or only in the last, byte of each of
+    the CUDA kernel's tiles: the carry crosses every tile edge, and every
+    tile's reset sits at an end of it."""
+    data = _no_space(n, seed=17)
+    data[(0 if where == "first" else TILE_BYTES - 1):: TILE_BYTES] = ord(" ")
+    return data
+
+
 def _scan_input(kind: str) -> np.ndarray:
-    # Both inputs span two blocks (one interpret-mode compile, whose time
+    # All inputs span two blocks (one interpret-mode compile, whose time
     # grows with the grid).
     if kind == "random":  # every byte value
         return np.random.default_rng(3).integers(0, 256, 2 * BLOCK, dtype=np.uint8)
+    if kind.startswith("ws_at_tile_"):
+        return _tile_edge_spaces(2 * BLOCK, kind.removeprefix("ws_at_tile_"))
     return _straddle_block()
 
 
-@pytest.mark.parametrize("kind", ["random", "straddle"])
+@pytest.mark.parametrize("kind", ["random", "straddle", "ws_at_tile_first", "ws_at_tile_last"])
 def test_hash_scan_reference_matches_pallas(kind):
     data = _scan_input(kind)
     want = [np.asarray(x) for x in hash_scan_pallas(jnp.asarray(data), interpret=True)]
@@ -148,21 +169,45 @@ def test_tokenize_matches_jax_on_whitespace_free_run():
     _assert_tokenize_equal(data)
 
 
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_tokenize_matches_jax_with_whitespace_only_at_tile_edges(where):
+    # At this size the JAX function is compiled for last_is_boundary=True
+    # only, and the file adds no compile: False differs from True only in
+    # that byte N-1, which is not whitespace here, ends no token.
+    data = _tile_edge_spaces(_N, where)
+    assert data[-1] != ord(" ")
+    _assert_tokenize_equal(data, last_is_boundary=True)
+    want = [np.asarray(x) for x in jax_tokenize(jnp.asarray(data), last_is_boundary=True)]
+    got = tokenize_hash_reference(torch.from_numpy(data), last_is_boundary=False)
+    got = [g.numpy().view(np.uint32) if i < 2 else g.numpy() for i, g in enumerate(got)]
+    assert want[3][-1]  # the trailing token ends the chunk when it is a boundary...
+    for name, w, g, last in zip(("k1", "k2", "value", "valid"), want, got,
+                                (np.uint32(port_hashing.SENTINEL), np.uint32(port_hashing.SENTINEL),
+                                 0, False)):
+        assert np.array_equal(w[:-1], g[:-1]), name
+        assert g[-1] == last, name  # ...and ends none when it is not
+
+
 def test_hash_scan_on_cpu_uses_plain_version_and_counts_nothing():
     data = torch.from_numpy(_random_text(4096, seed=1))
-    before = hash_scan.launches
+    before = hash_scan.launches, tokenize_hash.launches
     got = hash_scan(data)
     want = hash_scan_reference(data)
-    assert hash_scan.launches == before
+    fused = tokenize_hash(data, False)
+    fused_want = tokenize_hash_reference(data, False)
+    assert (hash_scan.launches, tokenize_hash.launches) == before
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(fused, fused_want))
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "meta"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "meta",
+                                 "fused-dtype", "fused-shape", "fused-meta"])
 def test_hash_scan_rejects_what_the_kernel_does_not_take(bad):
+    entry = tokenize_hash if bad.startswith("fused-") else hash_scan
     x = {
         "dtype": torch.zeros(16, dtype=torch.int32),
         "shape": torch.zeros((4, 4), dtype=torch.uint8),
         "meta": torch.zeros(16, dtype=torch.uint8, device="meta"),
-    }[bad]
+    }[bad.removeprefix("fused-")]
     with pytest.raises(ValueError):
-        hash_scan(x)
+        entry(x)
