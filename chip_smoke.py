@@ -11,7 +11,8 @@ one JSON line; any failure raises and ends the run:
 
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    — every kernel of the path compiled from the checkout's
-              sources with nvcc (one nvcc per source, started together);
+              sources with nvcc (one nvcc per source), and the native host
+              library (native/loader.cpp) with g++, all started together;
 3. kernel   — both entries of the scan kernel, hash_scan and the fused
               tokenize_hash (last_is_boundary True and False), held bit for
               bit against their plain versions on the card at the main
@@ -20,17 +21,30 @@ one JSON line; any failure raises and ends the run:
               of runs of 20 calls between one CUDA event pair, both
               replayed from a CUDA graph (the device's time) and eager (the
               host's work per call included), and once at 64 MiB;
-4. main     — a seeded 256 MiB Zipf corpus (4 files) through run_job with
-              the default Config (4 MiB chunks, 2^21-key state), reduce_n=8,
-              every output line checked against the generator's counts;
+4. native   — the host library's path and build seconds; scan_unique_raw,
+              scan_count_raw, scan_count_sharded_raw (S = 4),
+              normalize_native and coalesce_updates_into held against their
+              plain Python versions on a 4 MiB slice of the Zipf corpus and
+              of the unicode text corpus;
+5. main     — a seeded 256 MiB Zipf corpus (4 files) through run_job with
+              the default Config (device engine, 4 MiB chunks, 2^21-key
+              state), reduce_n=8, every output line checked against the
+              generator's counts;
    step     — the device time of one main-path step (map_combine + merge)
               on a 4 MiB chunk of that corpus, against the host's time per
               chunk in the main phase;
-5. evict    — the same corpus with merge_capacity=2^18, so evicted tails
+6. evict    — the same corpus with merge_capacity=2^18, so evicted tails
               flow to the host accumulator on every merge; exact as well;
-6. cli      — a few-MB unicode/punctuation corpus through
-              ``python -m mapreduce_rust_tpu_torch run``, checked against
-              the port's reference_word_counts.
+7. host     — the same corpus through the host-map engine
+              (map_engine="host", default host Config: auto workers and
+              shards, async dispatch, coalescing); exact, no scan kernel
+              launched, the native scan's arenas live;
+8. host-evict — the host engine with merge_capacity=2^18, no coalescing,
+              sync dispatch: the pinned stager's event barrier on every
+              merge; exact, keys spilled;
+9. cli      — a few-MB unicode/punctuation corpus through
+              ``python -m mapreduce_rust_tpu_torch run``, once per engine,
+              checked against the port's reference_word_counts.
 
 Then the card's nvidia-smi line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Kernel launch counts are reset just
@@ -65,6 +79,10 @@ ZIPF_S = 1.05
 ZIPF_SEED = 20260730
 ZIPF_BYTES = 256 << 20
 ZIPF_FILES = 4
+#: Host time per 4 MiB chunk of the main path before the native scan, ms
+#: (PERF.md §5: chip_smoke.py main phase, NVIDIA H100 80GB HBM3, 700 W).
+HOST_MS_PER_CHUNK_PYTHON_SCAN = (672, 1539)
+SLICE_BYTES = 4 << 20
 
 
 def emit(obj) -> None:
@@ -125,15 +143,23 @@ def time_ms(fn, warmup: int, reps: int, groups: int = 5, graph: bool = False) ->
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mapreduce_rust_tpu_torch.native import host as native_host
     from mapreduce_rust_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    builds = cuda_build.build_all(["hash_scan.cu"])
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        native = pool.submit(native_host.get_lib)
+        builds = cuda_build.build_all(["hash_scan.cu"])
+        native.result()
     ptxas = [f"{b.source}: {line.strip()}" for b in builds for line in b.log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "arch": cuda_build.ARCH,
           "seconds": time.perf_counter() - t0,
-          "sources": {b.source: b.seconds for b in builds}, "ptxas": ptxas})
+          "sources": {b.source: b.seconds for b in builds}, "ptxas": ptxas,
+          "native": str(native_host.loaded_path().relative_to(ROOT)),
+          "native_seconds": native_host.build_seconds})
 
 
 def _text_bytes(n: int, gen) -> "torch.Tensor":
@@ -269,6 +295,90 @@ def phase_kernel() -> list[dict]:
     return rows
 
 
+def _ws_slice(data: bytes, n: int) -> bytes:
+    """The first n bytes of data, cut back to the last ASCII space."""
+    if len(data) <= n:
+        return data
+    return data[: data.rindex(b" ", 0, n) + 1]
+
+
+def phase_native(zipf_dir: pathlib.Path, text_blob: bytes) -> None:
+    """Each entry of the native host library against its plain Python
+    version on a 4 MiB slice of each corpus."""
+    import numpy as np
+
+    from mapreduce_rust_tpu_torch.core.normalize import normalize_python
+    from mapreduce_rust_tpu_torch.native import host
+    from mapreduce_rust_tpu_torch.runtime.dictionary import shard_ids_of_packed
+    from mapreduce_rust_tpu_torch.runtime.driver import (
+        _coalesce_updates_py,
+        _py_scan_count,
+        _scan_payload_python,
+    )
+
+    def words_of(raw, ends):
+        starts = [0] + ends[:-1].tolist()
+        return [raw[a:b] for a, b in zip(starts, ends.tolist())]
+
+    slices = {"zipf": _ws_slice((zipf_dir / "part-0.txt").read_bytes(), SLICE_BYTES),
+              "text": _ws_slice(text_blob, SLICE_BYTES)}
+    out = {"phase": "native", "library": str(host.loaded_path().relative_to(ROOT)),
+           "build_seconds": host.build_seconds, "slices": {}}
+    for name, raw in slices.items():
+        row = {"bytes": len(raw)}
+        t0 = time.perf_counter()
+        norm = host.normalize_native(raw)
+        row["normalize_ms"] = (time.perf_counter() - t0) * 1e3
+        check(norm == normalize_python(raw), f"normalize_native differs on {name}")
+
+        t0 = time.perf_counter()
+        uraw, uends, ukeys = host.scan_unique_raw(norm)
+        row["scan_unique_ms"] = (time.perf_counter() - t0) * 1e3
+        words, keys = _scan_payload_python(norm)
+        check(words_of(uraw, uends) == words and np.array_equal(ukeys, keys),
+              f"scan_unique_raw differs on {name}")
+
+        t0 = time.perf_counter()
+        craw, cends, ckeys, ccounts = host.scan_count_raw(raw)
+        row["scan_count_ms"] = (time.perf_counter() - t0) * 1e3
+        pwords, pkeys, pcounts = _py_scan_count(raw)
+        check(words_of(craw, cends) == pwords and np.array_equal(ckeys, pkeys)
+              and np.array_equal(ccounts, pcounts), f"scan_count_raw differs on {name}")
+
+        t0 = time.perf_counter()
+        graw, gends, gkeys, gcounts, pos, shard_counts = host.scan_count_sharded_raw(raw, 4)
+        row["scan_count_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+        packed = (pkeys[:, 0].astype(np.uint64) << np.uint64(32)) \
+            | pkeys[:, 1].astype(np.uint64)
+        shard = shard_ids_of_packed(packed, 4).astype(np.int64)
+        order = np.argsort(shard, kind="stable")
+        check(words_of(graw, gends) == [pwords[i] for i in order.tolist()]
+              and np.array_equal(gkeys, pkeys[order])
+              and np.array_equal(gcounts, pcounts[order]) and np.array_equal(pos, order)
+              and np.array_equal(shard_counts, np.bincount(shard, minlength=4)),
+              f"scan_count_sharded_raw differs on {name}")
+
+        # Coalesce the slice's sorted (key, count) column into itself
+        # shifted: every key of b either new or summed.
+        sorted_idx = np.argsort(packed, kind="stable")
+        a_k = np.ascontiguousarray(packed[sorted_idx])
+        a_v = np.ascontiguousarray(pcounts[sorted_idx].astype(np.int64))
+        b_k = np.ascontiguousarray(a_k[::2] + np.uint64(1))
+        b_k = np.unique(np.concatenate([b_k, a_k[1::3]]))
+        b_v = np.arange(1, len(b_k) + 1, dtype=np.int64)
+        out_k = np.empty(len(a_k) + len(b_k), np.uint64)
+        out_v = np.empty(len(a_k) + len(b_k), np.int64)
+        t0 = time.perf_counter()
+        m = host.coalesce_updates_into(a_k, a_v, len(a_k), b_k, b_v, out_k, out_v)
+        row["coalesce_ms"] = (time.perf_counter() - t0) * 1e3
+        want_k, want_v = _coalesce_updates_py(a_k, a_v, len(a_k), b_k, b_v)
+        check(np.array_equal(out_k[:m], want_k) and np.array_equal(out_v[:m], want_v),
+              f"coalesce_updates_into differs on {name}")
+        row.update(unique_words=len(pwords), tokens=int(pcounts.sum()), exact=True)
+        out["slices"][name] = row
+    emit(out)
+
+
 def write_zipf_corpus(dirpath: pathlib.Path):
     """ZIPF_FILES files of 8-byte tokens b'w%06x ' drawn Zipf(s) over
     ZIPF_VOCAB ranks by inverse-CDF sampling; returns the generator-side
@@ -335,9 +445,9 @@ def drive_job(name: str, corpus: pathlib.Path, work: pathlib.Path, truth, **cfg_
     check(s.unknown_keys == 0, f"{name}: {s.unknown_keys} unknown keys")
     check(s.hash_collisions == 0, f"{name}: {s.hash_collisions} hash collisions")
     lines = check_zipf_outputs(res.output_files, truth)
-    check(launches["tokenize_hash"] >= s.chunks, f"{name}: tokenize_hash launched "
-          f"{launches['tokenize_hash']} times for {s.chunks} chunks")
-    out = {"phase": name, "exact": True, "launches": launches,
+    stream_s = s.phase_seconds["stream"]
+    out = {"phase": name, "exact": True, "map_engine": cfg.map_engine,
+           "launches": launches,
            "wall_s": s.wall_seconds, "GB_per_s": s.gb_per_s, "bytes_in": s.bytes_in,
            "chunks": s.chunks, "device_wait_s": s.device_wait_s,
            "ingest_wait_s": s.ingest_wait_s, "distinct_keys": s.distinct_keys,
@@ -346,7 +456,25 @@ def drive_job(name: str, corpus: pathlib.Path, work: pathlib.Path, truth, **cfg_
            "partial_overflow_replays": s.partial_overflow_replays,
            "phase_seconds": s.phase_seconds,
            "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
-           "merge_capacity": cfg.merge_capacity, "chunk_bytes": cfg.chunk_bytes}
+           "merge_capacity": cfg.merge_capacity}
+    if cfg.map_engine == "device":
+        check(launches["tokenize_hash"] >= s.chunks, f"{name}: tokenize_hash launched "
+              f"{launches['tokenize_hash']} times for {s.chunks} chunks")
+        out.update(chunk_bytes=cfg.chunk_bytes,
+                   host_ms_per_chunk=stream_s / s.chunks * 1e3,
+                   fold_ms_per_chunk=s.fold_s / s.chunks * 1e3,
+                   host_ms_per_chunk_python_scan=list(HOST_MS_PER_CHUNK_PYTHON_SCAN))
+    else:
+        check(launches == {"hash_scan": 0, "tokenize_hash": 0},
+              f"{name}: the host engine launched a scan kernel: {launches}")
+        check(s.host_arena_bytes > 0, f"{name}: no native scan arena was live")
+        out.update({k: getattr(s, k) for k in (
+            "host_map_workers", "fold_shards", "host_map_s", "host_glue_s",
+            "scan_wait_s", "dispatch_s", "dispatch_stall_s", "dispatch_mode",
+            "merge_dispatches", "merge_fill_frac", "fold_s", "fold_stall_s",
+            "host_arena_bytes")},
+            host_window_bytes=cfg.host_window_bytes,
+            host_update_cap=cfg.host_update_cap, windows=s.chunks)
     emit(out)
     return out
 
@@ -401,36 +529,36 @@ def write_text_corpus(dirpath: pathlib.Path) -> list[bytes]:
     return blobs
 
 
-def phase_cli(work: pathlib.Path) -> None:
+def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> None:
     from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
 
-    corpus = work / "text"
-    corpus.mkdir()
-    blobs = write_text_corpus(corpus)
-    out = work / "text-out"
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--input", str(corpus),
-         "--output", str(out), "--work", str(work / "text-work"), "--reduce-n", "4"],
-        capture_output=True, text=True, timeout=600, cwd=ROOT,
-    )
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"cli run failed ({r.returncode}):\n{r.stderr[-3000:]}")
     want: dict = {}
     for blob in blobs:
         for w, c in reference_word_counts(blob).items():
             want[w.encode()] = want.get(w.encode(), 0) + c
-    got: dict = {}
-    for path in sorted(out.glob("mr-*.txt")):
-        for line in path.read_bytes().splitlines():
-            w, v = line.rsplit(b" ", 1)
-            check(w not in got, f"word {w!r} emitted twice")
-            got[w] = int(v)
-    check(got == want, f"cli output differs from reference_word_counts "
-          f"({len(got)} vs {len(want)} words)")
-    emit({"phase": "cli", "exact": True, "words": len(got),
-          "bytes": sum(len(b) for b in blobs), "wall_s": wall,
-          "summary": r.stdout.strip().splitlines()[0]})
+    for engine in ("device", "host"):
+        out = work / f"text-out-{engine}"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--input", str(corpus),
+             "--output", str(out), "--work", str(work / f"text-work-{engine}"),
+             "--reduce-n", "4", "--map-engine", engine],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+        )
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"cli run ({engine}) failed ({r.returncode}):\n"
+              f"{r.stderr[-3000:]}")
+        got: dict = {}
+        for path in sorted(out.glob("mr-*.txt")):
+            for line in path.read_bytes().splitlines():
+                w, v = line.rsplit(b" ", 1)
+                check(w not in got, f"word {w!r} emitted twice")
+                got[w] = int(v)
+        check(got == want, f"cli output ({engine}) differs from reference_word_counts "
+              f"({len(got)} vs {len(want)} words)")
+        emit({"phase": "cli", "map_engine": engine, "exact": True, "words": len(got),
+              "bytes": sum(len(b) for b in blobs), "wall_s": wall,
+              "summary": r.stdout.strip().splitlines()[0]})
 
 
 def main() -> int:
@@ -466,11 +594,20 @@ def main() -> int:
               "files": ZIPF_FILES, "distinct_words": int((truth > 0).sum()),
               "tokens": int(truth.sum()), "vocab": ZIPF_VOCAB, "s": ZIPF_S,
               "seconds": time.perf_counter() - t0})
+        text = work / "text"
+        text.mkdir()
+        blobs = write_text_corpus(text)
+        phase_native(corpus, b"".join(blobs))
         main_run = drive_job("main", corpus, work, truth)
         phase_step(corpus, main_run)
         evict = drive_job("evict", corpus, work, truth, merge_capacity=1 << 18)
         check(evict["spilled_keys"] > 0, "evict: no keys were evicted")
-        phase_cli(work)
+        drive_job("host", corpus, work, truth, map_engine="host")
+        host_evict = drive_job("host-evict", corpus, work, truth, map_engine="host",
+                               merge_capacity=1 << 18, dispatch_coalesce=False,
+                               dispatch_async=False)
+        check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
+        phase_cli(work, text, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

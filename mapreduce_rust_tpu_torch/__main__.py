@@ -3,6 +3,8 @@
 fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
+        [--map-engine host [--host-workers N] [--fold-shards S]
+         [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
     python -m mapreduce_rust_tpu_torch merge --output DIR
 
 ``run`` needs a CUDA device unless ``--device cpu`` is given.
@@ -35,6 +37,12 @@ def _cfg(args) -> Config:
         reduce_n=args.reduce_n,
         chunk_bytes=int(args.chunk_mb * (1 << 20)),
         device=args.device,
+        map_engine=args.map_engine,
+        host_map_workers=args.host_workers,
+        fold_shards=args.fold_shards,
+        dispatch_async=not args.sync_dispatch,
+        dispatch_coalesce=not args.no_dispatch_coalesce,
+        dispatch_fill_frac=args.dispatch_fill,
         input_dir=args.input,
         input_pattern=args.pattern,
         work_dir=args.work,
@@ -80,6 +88,26 @@ def main(argv: list[str] | None = None) -> int:
     _add_common(p)
     p.add_argument("--chunk-mb", type=float, default=4.0)
     p.add_argument("--device", default="cuda", choices=list(DEVICES))
+    p.add_argument("--map-engine", default="device", choices=["device", "host"],
+                   dest="map_engine",
+                   help="device: tokenize/combine on the card; host: the fused "
+                   "native scan maps on the host, the card merges")
+    p.add_argument("--host-workers", type=int, default=None, dest="host_workers",
+                   help="host engine scan threads (default: usable cores minus "
+                   "one); outputs are identical for any value")
+    p.add_argument("--fold-shards", type=int, default=None, dest="fold_shards",
+                   help="host engine egress-fold shards (default: 1 below 4 "
+                   "usable cores, else min(4, cores//2)); outputs identical")
+    p.add_argument("--sync-dispatch", action="store_true", dest="sync_dispatch",
+                   help="host engine: run the merge dispatch inline on the "
+                   "router thread (MR_DISPATCH_SYNC=1 does the same)")
+    p.add_argument("--no-dispatch-coalesce", action="store_true",
+                   dest="no_dispatch_coalesce",
+                   help="host engine: every window dispatches its own merges")
+    p.add_argument("--dispatch-fill", "--dispatch-fill-frac", type=float,
+                   default=0.5, dest="dispatch_fill",
+                   help="host engine: staging fill fraction that triggers a "
+                   "coalesced merge (default 0.5)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("merge", help="mr-*.txt → final.txt")

@@ -9,6 +9,9 @@ driver is parameterized by, split along the device/host seam —
 - **combine_op** — the associative reduce op (ops/groupby.REDUCE_OPS),
   which lets per-chunk partials merge on the device and spilled tails sum
   on the host.
+- **host_mask** / **host_values** — the host-map engine's twins of
+  device_map: which of a window's unique keys to keep, and their values
+  given their occurrence counts.
 - **finalize** and the other host methods — egress: turn the final
   (word, value) table into ``mr-{r}.txt`` lines, partitioned by
   ``k1 % reduce_n`` like the reference's split. They are copied from the
@@ -36,6 +39,27 @@ class App:
     def device_map(self, kv: KVBatch, doc_id: int) -> KVBatch:
         """On-device per-chunk transform; doc_id is the input file index."""
         return kv
+
+    def host_mask(self, keys) -> "object | None":
+        """Host-map-engine twin of a FILTERING device_map: given the
+        window's unique keys (uint32 [n, 2]), return a bool[n] keep-mask,
+        or None (default) for keep-everything. Applied by the host engine
+        BEFORE host_values, whose inputs are already filtered."""
+        return None
+
+    def host_values(self, counts, doc_id: int):
+        """Host-map-engine counterpart of device_map: values for one
+        window's unique keys, given their occurrence counts (uint32[n]).
+        Must agree with device_map ∘ combine_op — the two engines are
+        interchangeable and tested equal. The default is only correct for
+        sum apps (occurrence counts); any other combine_op must override
+        rather than inherit a silently wrong value stream."""
+        if self.combine_op != "sum":
+            raise NotImplementedError(
+                f"app {self.name!r} (combine_op={self.combine_op!r}) must "
+                "override host_values to run under map_engine='host'"
+            )
+        return counts
 
     def route(self, word: "bytes | None", k1: int, reduce_n: int) -> int:
         """Output partition of one key: k1 % reduce_n on the UNSIGNED k1,

@@ -1,10 +1,10 @@
 """Single config object for the PyTorch/CUDA port.
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
-single-device word_count path reads, with the reference's names and
-defaults — except ``device``, which defaults to ``"cuda"``: the port's
-entry points run on the card and raise without one, unless the caller asks
-for the CPU with ``device="cpu"``.
+single-device word_count engines read (device engine and host-map engine),
+with the reference's names and defaults — except ``device``, which
+defaults to ``"cuda"``: the port's entry points run on the card and raise
+without one, unless the caller asks for the CPU with ``device="cpu"``.
 
 Fields of engines this package does not have yet keep their reference
 names and defaults so that a reference Config's settings read the same
@@ -15,12 +15,29 @@ of being ignored.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
+
+
+def sync_dispatch_forced() -> bool:
+    """``MR_DISPATCH_SYNC`` — process-tree opt-out of the async dispatch
+    plane. Both the driver (plane construction) and the fold-shard auto
+    heuristic below read it, so the two never disagree on what counts as
+    async."""
+    return os.environ.get("MR_DISPATCH_SYNC", "").strip().lower() in (
+        "1", "true", "on", "yes"
+    )
+
+
+def _usable_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):  # non-Linux
+        return os.cpu_count() or 1
 
 #: Reference fields whose engines are not ported: field → the only value
 #: accepted (the reference default, which leaves the engine off).
 NOT_PORTED = {
-    "map_engine": "device",            # host-map engine
     "mesh_shape": None,                # multi-device mesh
     "sharded_stream": False,           # halo-exchange ingestion
     "host_accum_budget_mb": None,      # accumulator spill tier
@@ -54,8 +71,28 @@ class Config:
     pipeline_depth: int = 64        # in-flight device steps before the host
                                     # reads back their counters in one copy
 
+    # ---- Host-map engine (map_engine="host") ----
+    map_engine: str = "device"      # "device": tokenize/combine on the card;
+                                    # "host": the fused native scan maps on
+                                    # the host, the card merges the updates
+    host_window_bytes: int = 16 << 20  # map window of the host engine
+    host_map_workers: Optional[int] = None  # scan threads; None = usable
+                                    # cores minus one (the router's), min 1
+    fold_shards: Optional[int] = None  # egress-fold shards; None = 1 below
+                                    # 4 usable cores, else min(4, cores // 2)
+    host_update_cap: int = 1 << 16  # records per packed device merge
+    dispatch_async: bool = True     # merges dispatch from their own thread
+                                    # (False or MR_DISPATCH_SYNC=1: inline
+                                    # on the router; outputs identical)
+    dispatch_coalesce: bool = True  # sum apps: successive windows' updates
+                                    # pre-sum in a staging buffer before
+                                    # they ship (outputs identical)
+    dispatch_fill_frac: float = 0.5  # staging fill (of the stage cap) that
+                                    # triggers a coalesced dispatch
+    dispatch_stage_cap: Optional[int] = None  # staging records; None =
+                                    # 64 × host_update_cap
+
     # ---- Not ported (see NOT_PORTED) ----
-    map_engine: str = "device"
     mesh_shape: Optional[int] = None
     sharded_stream: bool = False
     host_accum_budget_mb: Optional[int] = None
@@ -90,6 +127,18 @@ class Config:
             raise ValueError("merge_capacity must be >= 1")
         if self.partial_capacity is not None and self.partial_capacity < 1:
             raise ValueError("partial_capacity must be >= 1 (or None)")
+        if self.map_engine not in ("device", "host"):
+            raise ValueError(f"unknown map_engine {self.map_engine!r}")
+        if self.host_map_workers is not None and self.host_map_workers < 1:
+            raise ValueError("host_map_workers must be >= 1 (or None for auto)")
+        if self.fold_shards is not None and self.fold_shards < 1:
+            raise ValueError("fold_shards must be >= 1 (or None for auto)")
+        if not 0.0 < self.dispatch_fill_frac <= 1.0:
+            raise ValueError("dispatch_fill_frac must be in (0, 1]")
+        if self.dispatch_stage_cap is not None and self.dispatch_stage_cap < 1:
+            raise ValueError("dispatch_stage_cap must be >= 1 (or None)")
+        if self.host_window_bytes < 1 or self.host_update_cap < 1:
+            raise ValueError("host_window_bytes and host_update_cap must be >= 1")
 
     def corpora(self) -> "tuple[tuple[str, str], ...]":
         """The job's (name, dir) corpus list: one corpus in this slice."""
@@ -98,3 +147,32 @@ class Config:
     def effective_partial_capacity(self) -> int:
         """The per-chunk distinct-key capacity of the map step."""
         return self.partial_capacity or max(self.chunk_bytes // 8, 1024)
+
+    def effective_host_map_workers(self) -> int:
+        """Resolved host-map scan worker count: the explicit knob, or the
+        usable cores (cpuset/affinity-aware) minus one reserved for the
+        router thread, which folds and dispatches full time."""
+        if self.host_map_workers:
+            return max(int(self.host_map_workers), 1)
+        return max(_usable_cores() - 1, 1)
+
+    def effective_fold_shards(self) -> int:
+        """Resolved egress-fold shard count of the host-map engine: the
+        explicit knob, or min(4, cores // 2) at >= 4 usable cores, else 1
+        (the inline fold on the router). The reference also picks 2 below
+        4 cores when a dictionary budget is set; that branch comes with
+        the dictionary spill tier (``dictionary_budget_words``)."""
+        if self.fold_shards:
+            return max(int(self.fold_shards), 1)
+        n = _usable_cores()
+        return 1 if n < 4 else min(4, n // 2)
+
+    def effective_dispatch_stage_cap(self) -> int:
+        """Resolved staging-combine capacity of the dispatch plane: the
+        explicit knob (clamped up to one update cap), or 64 × the update
+        cap — staging must span many windows' distinct keys for
+        cross-window duplicates to cancel. The buffers are np.empty, so
+        resident memory follows the fill actually reached."""
+        if self.dispatch_stage_cap is not None:
+            return max(int(self.dispatch_stage_cap), self.host_update_cap)
+        return 64 * self.host_update_cap

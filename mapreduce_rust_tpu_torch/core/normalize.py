@@ -1,9 +1,11 @@
 """Host-side unicode normalization for ingest.
 
-The port's copy of ``mapreduce_rust_tpu/core/normalize.py`` through its
-pure-Python path (the native C normalizer comes with the host-map slice);
-the two produce identical bytes (the reference's own tests hold its native
-pass to this one).
+The port's copy of ``mapreduce_rust_tpu/core/normalize.py``.
+``normalize_unicode`` runs the native one-pass C normalizer
+(native/loader.cpp ``mr_normalize``, built with g++ at first use; it
+raises without g++). ``normalize_python`` is the pure-Python pass that
+defines the semantics and that tests/test_torch_native.py holds the native
+one to, byte for byte; no production path calls it.
 
 The reference word-count app strips ``[^\\w\\s]`` with a Unicode-aware Rust
 regex and splits on Unicode whitespace (src/app/wc.rs:6-13). The device
@@ -82,10 +84,22 @@ _RUN_CACHE_MAX_LEN = 64
 def normalize_unicode(data: bytes) -> bytes:
     """Normalize a UTF-8 byte string for the device tokenizer.
 
-    Pure-ASCII input is returned unchanged. Otherwise only the contiguous
-    non-ASCII byte runs are rewritten (UTF-8 lead AND continuation bytes
-    are all >= 0x80, so a run always covers whole sequences); the ASCII
-    spans between them are passed through by slicing.
+    Pure-ASCII input is returned unchanged; anything else goes through the
+    native one-pass C normalizer, which is byte-exact against
+    :func:`normalize_python`."""
+    if data.isascii():
+        return data
+    from mapreduce_rust_tpu_torch.native.host import normalize_native
+
+    return normalize_native(data)
+
+
+def normalize_python(data: bytes) -> bytes:
+    """The pure-Python normalization pass (the native pass's plain version).
+
+    Only the contiguous non-ASCII byte runs are rewritten (UTF-8 lead AND
+    continuation bytes are all >= 0x80, so a run always covers whole
+    sequences); the ASCII spans between them are passed through by slicing.
     """
     if data.isascii():
         return data

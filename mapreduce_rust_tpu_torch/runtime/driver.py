@@ -1,9 +1,11 @@
-"""Chunked streaming driver — the end-to-end engine on one device.
+"""Chunked streaming driver — the end-to-end engines on one device.
 
-The port of ``mapreduce_rust_tpu/runtime/driver.py``'s single-device path
-(``run_job`` → ``_stream_single``). A host loop streams whitespace-aligned
-chunks (runtime/chunker.py) through a per-chunk step and keeps the running
-distinct-key state on the device:
+The port of ``mapreduce_rust_tpu/runtime/driver.py``'s single-device
+engines. ``run_job`` picks one by ``Config.map_engine``.
+
+**Device engine** (``"device"``, the default: ``_stream_single``). A host
+loop streams whitespace-aligned chunks (runtime/chunker.py) through a
+per-chunk step and keeps the running distinct-key state on the device:
 
     chunk bytes ──pinned, non_blocking──▶ tokenize_and_hash (CUDA kernel)
         ─▶ compact_front ─▶ app.device_map ─▶ count_unique ─▶ merge into state
@@ -12,10 +14,10 @@ distinct-key state on the device:
               └─▶ host accumulator (exact, nothing dropped)
 
 PyTorch runs asynchronously on the card: while the device works on chunk
-k the host reads, normalizes and chunks k+1 and feeds the egress
-dictionary. The overflow and eviction counters of a whole
-``Config.pipeline_depth`` window come back in ONE device→host copy, so the
-host never waits a round trip per chunk.
+k the host reads, normalizes and chunks k+1, and an ingest pool runs the
+native dictionary scan (native/host.scan_unique_raw) whose results fold
+into the egress dictionary. The overflow and eviction counters of a whole
+``Config.pipeline_depth`` window come back in ONE device→host copy.
 
 Capacity faults are handled, not asserted:
 - per-chunk distinct keys > partial_capacity → the step clamps its update
@@ -24,6 +26,14 @@ Capacity faults are handled, not asserted:
   exact);
 - merged distinct keys > merge_capacity → the evicted tail spills whole to
   the host accumulator (ops/groupby.merge_batches; counted, exact).
+
+**Host-map engine** (``"host"``: ``_stream_host_map``). The map runs on
+the host: scan workers run the fused native normalize+tokenize+hash+count
+pass over memory-mapped windows, the router folds the scan into the
+dictionary (or hands key-hash shards to fold threads) and hands each
+window's (key, count) update to the dispatch plane, which coalesces
+updates across windows and merges them into the same device state with
+``merge_batches``. No scan kernel runs on the card in this engine.
 
 At egress the final table joins the hash→word dictionary and the app
 formats its partitions, written as ``mr-{r}.txt``.
@@ -45,9 +55,17 @@ import torch
 
 from mapreduce_rust_tpu_torch.apps.base import App
 from mapreduce_rust_tpu_torch.apps.word_count import WordCount
-from mapreduce_rust_tpu_torch.config import Config
+from mapreduce_rust_tpu_torch.config import Config, sync_dispatch_forced
 from mapreduce_rust_tpu_torch.core.hashing import hash_words
-from mapreduce_rust_tpu_torch.core.kv import KVBatch
+from mapreduce_rust_tpu_torch.core.kv import SENTINEL_I32, KVBatch
+from mapreduce_rust_tpu_torch.core.normalize import normalize_python
+from mapreduce_rust_tpu_torch.native.host import (
+    arena_bytes,
+    coalesce_updates_into,
+    scan_count_raw,
+    scan_count_sharded_raw,
+    scan_unique_raw,
+)
 from mapreduce_rust_tpu_torch.ops.groupby import (
     REDUCE_OPS,
     clamp_batch,
@@ -57,8 +75,17 @@ from mapreduce_rust_tpu_torch.ops.groupby import (
     merge_batches,
 )
 from mapreduce_rust_tpu_torch.ops.tokenize import tokenize_and_hash
-from mapreduce_rust_tpu_torch.runtime.chunker import chunk_stream, resolve_corpora
-from mapreduce_rust_tpu_torch.runtime.dictionary import Dictionary, extract_words
+from mapreduce_rust_tpu_torch.runtime.chunker import (
+    _ws_cut,
+    chunk_stream,
+    resolve_corpora,
+    utf8_safe_cut,
+)
+from mapreduce_rust_tpu_torch.runtime.dictionary import (
+    Dictionary,
+    ShardedDictionary,
+    extract_words,
+)
 from mapreduce_rust_tpu_torch.runtime.metrics import JobStats, log
 
 
@@ -195,12 +222,49 @@ class JobResult:
     output_files: list[str]
 
 
-def _scan_payload(payload: bytes) -> tuple[list[bytes], np.ndarray]:
-    """(distinct words, their hash pairs uint32 [n, 2]) of one chunk's
-    payload — runs on the ingest pool."""
+def _scan_payload(payload: bytes):
+    """Tagged scan result ("raw", raw, ends, keys) of one chunk's normalized
+    payload — runs on the ingest pool. The native C pass releases the GIL,
+    so scans of consecutive chunks overlap each other, the chunker thread
+    and the device steps."""
+    return ("raw", *scan_unique_raw(payload))
+
+
+def _scan_payload_python(payload: bytes) -> tuple[list[bytes], np.ndarray]:
+    """Plain version of :func:`_scan_payload`: (distinct words in first
+    occurrence order, their hash pairs uint32 [n, 2]). Tests hold the
+    native scan to it; no production path calls it."""
     seen: set = set()
     words = [w for w in extract_words(payload) if not (w in seen or seen.add(w))]
     return words, hash_words(words)
+
+
+def _slice_words(raw: bytes, ends: np.ndarray, idx) -> list[bytes]:
+    """Materialize words idx (ascending indices) of a concatenated
+    (raw, ends) scan result."""
+    ends_l = ends.tolist()
+    return [raw[(ends_l[i - 1] if i else 0): ends_l[i]] for i in idx]
+
+
+def scan_keys(kind, parts) -> np.ndarray:
+    """The hash-pair array of a tagged scan result."""
+    if kind != "raw":
+        raise ValueError(f"unknown scan result kind {kind!r}")
+    return parts[2]
+
+
+def fold_scan_into_dictionary(dictionary: Dictionary, mask, kind, parts) -> None:
+    """Fold one tagged scan result ("raw", raw, ends, keys[, ...]) into the
+    egress dictionary, restricted to the keys a filtering app keeps. mask
+    is the precomputed ``App.host_mask(scan_keys(...))``, or None for
+    keep-everything, which folds through the vectorized fast path."""
+    raw, ends, keys = parts[0], parts[1], scan_keys(kind, parts)
+    if mask is None:
+        dictionary.add_scanned_raw(raw, ends, keys)
+        return
+    idx = np.nonzero(mask)[0].tolist()
+    if idx:
+        dictionary.add_scanned(_slice_words(raw, ends, idx), keys[idx])
 
 
 _END = object()
@@ -213,10 +277,13 @@ class _IngestStream:
     thread. doc_id = position in inputs."""
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
-                 dictionary: Dictionary) -> None:
+                 dictionary: Dictionary, host_mask) -> None:
         self.cfg = cfg
         self.stats = stats
         self.dictionary = dictionary
+        # Filtering apps (App.host_mask) restrict dictionary growth to
+        # their query keys; the default keep-all mask folds via fast paths.
+        self.host_mask = host_mask
         self.workers = max(cfg.ingest_threads, 1)
         self.pool = ThreadPoolExecutor(max_workers=self.workers,
                                        thread_name_prefix="mr/ingest-io")
@@ -259,7 +326,12 @@ class _IngestStream:
     def _fold_done(self, block: bool = False) -> None:
         while self.scans and (block or self.scans[0].done()):
             # Dictionary state is only ever touched here, on the consumer.
-            self.dictionary.add_scanned(*self.scans.popleft().result())
+            kind, *rest = self.scans.popleft().result()
+            t0 = time.perf_counter()
+            fold_scan_into_dictionary(self.dictionary,
+                                      self.host_mask(scan_keys(kind, rest)),
+                                      kind, rest)
+            self.stats.fold_s += time.perf_counter() - t0
             block = False  # a blocking drain pops exactly one
 
     def __iter__(self):
@@ -360,7 +432,7 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
             if ovf_n > 0:
                 replay_chunk(chunk_host, doc_id)
 
-    ingest = _IngestStream(cfg, inputs, stats, dictionary)
+    ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask)
     try:
         for chunk in ingest:
             chunk_host, chunk_dev = _to_device(chunk.data, device)
@@ -379,6 +451,757 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
         raise
     ingest.close()
     acc.add_batch(state)
+
+
+# ---------------------------------------------------------------------------
+# The host-map engine (map_engine="host")
+# ---------------------------------------------------------------------------
+
+
+def make_packed_merge_fn(app: App, cap: int):
+    """Merge one host-mapped update, shipped as ONE flat int32 tensor (one
+    host→device copy, not four):
+
+        flat[0]                n — number of real records
+        flat[1 : 1+cap]        k1 (SENTINEL-padded so padding sorts last)
+        flat[1+cap : 1+2cap]   k2
+        flat[1+2cap : 1+3cap]  value
+
+    each lane the int32 bit pattern of the reference's uint32 layout.
+    Returns (new_state, evicted, evicted_count), all on the device; nothing
+    here waits for the card."""
+    op = app.combine_op
+
+    def merge_packed(state: KVBatch, flat: torch.Tensor):
+        update = KVBatch(
+            k1=flat[1: 1 + cap],
+            k2=flat[1 + cap: 1 + 2 * cap],
+            value=flat[1 + 2 * cap: 1 + 3 * cap],
+            valid=torch.arange(cap, dtype=torch.int32, device=flat.device) < flat[0],
+        )
+        new_state, evicted = merge_batches(state, update, op=op)
+        return new_state, evicted, evicted.valid.sum(dtype=torch.int32)
+
+    return merge_packed
+
+
+def _pack_update(keys: np.ndarray, values: np.ndarray, cap: int) -> np.ndarray:
+    """Lay one window's (keys uint32[n,2], values) into the flat layout
+    make_packed_merge_fn expects, in a fresh buffer — the plain packer the
+    tests hold :class:`_PackStager` to, byte for byte."""
+    n = len(keys)
+    flat = np.full(1 + 3 * cap, 0xFFFFFFFF, dtype=np.uint32)  # SENTINEL pad
+    flat[0] = n
+    flat[1: 1 + n] = keys[:, 0]
+    flat[1 + cap: 1 + cap + n] = keys[:, 1]
+    flat[1 + 2 * cap: 1 + 2 * cap + n] = np.asarray(values, dtype=np.uint32)
+    return flat
+
+
+class _PackStager:
+    """Zero-memset packed-update staging: ONE persistent ``1 + 3·cap``
+    buffer reused across dispatches, re-sentineling only the stale tail
+    the previous pack left beyond the new fill — byte-identical to
+    :func:`_pack_update` by construction.
+
+    On a card the buffer is pinned host memory, written through a numpy
+    view and copied with ``non_blocking=True``. That copy reads the buffer
+    after the call returns, so a CUDA event recorded right after it is
+    the reuse barrier: the next ``pack`` waits on it before touching the
+    buffer. On the CPU a device "copy" would alias the buffer, so
+    ``to_device`` clones it instead and no barrier is needed."""
+
+    SENTINEL = np.uint32(0xFFFFFFFF)
+
+    def __init__(self, cap: int, device: torch.device) -> None:
+        self.cap = cap
+        self.device = device
+        self.needs_barrier = device.type != "cpu"
+        self.host = torch.full((1 + 3 * cap,), SENTINEL_I32, dtype=torch.int32,
+                               pin_memory=self.needs_barrier)
+        self.flat = self.host.numpy().view(np.uint32)
+        self.dirty = 0  # records of the previous pack still in the buffer
+        self._copied = torch.cuda.Event() if self.needs_barrier else None
+        self._pending = False  # a copy was recorded and not yet waited on
+
+    def pack(self, k1: np.ndarray, k2: np.ndarray, vals: np.ndarray) -> np.ndarray:
+        if self._pending:
+            self._copied.synchronize()  # the last copy has read the buffer
+            self._pending = False
+        n = len(k1)
+        cap, flat, dirty = self.cap, self.flat, self.dirty
+        if dirty > n:  # re-sentinel ONLY the stale tail of each section
+            flat[1 + n: 1 + dirty] = self.SENTINEL
+            flat[1 + cap + n: 1 + cap + dirty] = self.SENTINEL
+            flat[1 + 2 * cap + n: 1 + 2 * cap + dirty] = self.SENTINEL
+        flat[0] = n
+        flat[1: 1 + n] = k1
+        flat[1 + cap: 1 + cap + n] = k2
+        flat[1 + 2 * cap: 1 + 2 * cap + n] = vals
+        self.dirty = n
+        return flat
+
+    def to_device(self) -> torch.Tensor:
+        """The packed buffer on the job's device (see the class note on
+        reuse)."""
+        if not self.needs_barrier:
+            return self.host.clone()
+        flat_dev = self.host.to(self.device, non_blocking=True)
+        self._copied.record()
+        self._pending = True
+        return flat_dev
+
+
+def _coalesce_updates_py(a_keys, a_vals, m, b_keys, b_vals):
+    """Plain version of ``coalesce_updates_into``: merge two sorted
+    unique-key columns, summing counts on duplicate keys, by one
+    concatenate + argsort. Tests hold the native merge to it."""
+    keys = np.concatenate([a_keys[:m], b_keys])
+    vals = np.concatenate([a_vals[:m], b_vals])
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], vals[order]
+    if not len(ks):
+        return ks, vs
+    first = np.empty(len(ks), dtype=bool)
+    first[0] = True
+    first[1:] = ks[1:] != ks[:-1]
+    idx = np.nonzero(first)[0]
+    return ks[idx], np.add.reduceat(vs, idx)
+
+
+class _DispatchPlane:
+    """The device-merge dispatch plane: scan-order scatter-back, update
+    pack, host→device copy and the packed merge, on ONE dedicated
+    depth-bounded dispatch thread (or inline on the router with
+    ``dispatch_async=False`` / ``MR_DISPATCH_SYNC=1``). The router hands
+    off O(1) per window and goes back to routing.
+
+    - **Cross-window coalescing** (``Config.dispatch_coalesce``, "sum"
+      apps only — pre-summing any other op would be wrong): successive
+      windows' (packed-key, count) columns merge into a staging combine
+      buffer (native ``mr_coalesce_updates``), and a device merge
+      dispatches only when the fill crosses ``dispatch_fill_frac`` of the
+      stage cap or the stream ends.
+    - **Zero-memset staging** (:class:`_PackStager`).
+
+    Exactness: the dispatch stream is a pure function of the window
+    sequence and the dispatch config — never of (host_map_workers,
+    fold_shards) — so outputs and spill counters are identical across the
+    (W, S) matrix at a fixed dispatch config. Coalescing changes which
+    merges the device sees, not what they sum to.
+
+    Failure containment: a dispatch error poisons the plane; the dead
+    thread keeps draining its queue so the router's bounded ``submit``
+    never deadlocks; the original error re-raises on the router at the
+    next submit or at ``finish``; ``abort`` forces the sentinel past a
+    full queue.
+    """
+
+    _SENTINEL = object()
+    _QUEUE_DEPTH = 8  # windows in flight router→dispatch; each pins one
+    # window's scan arrays (shared read-only with the fold plane's slices)
+
+    def __init__(self, cfg: Config, app: App, stats: JobStats, acc,
+                 device: torch.device) -> None:
+        self.app = app
+        self.acc = acc
+        self.device = device
+        self.cap = cfg.host_update_cap
+        self.depth = max(cfg.pipeline_depth, 1)
+        self.sync = (not cfg.dispatch_async) or sync_dispatch_forced()
+        self.coalesce = bool(cfg.dispatch_coalesce) and app.combine_op == "sum"
+        self.stage_cap = cfg.effective_dispatch_stage_cap()
+        self.fill_threshold = max(
+            1, min(self.stage_cap,
+                   int(round(cfg.dispatch_fill_frac * self.stage_cap)))
+        )
+        self.merge_packed = make_packed_merge_fn(app, self.cap)
+        self.state = KVBatch.empty(cfg.merge_capacity, device)
+        self.pending: collections.deque = collections.deque()  # (ev, evicted)
+        self._stager = _PackStager(self.cap, device)
+        if self.coalesce:
+            # Ping-pong staging pair: the native merge writes into the
+            # OTHER buffer (inputs must not alias outputs), then the roles
+            # swap — no allocation per window.
+            self._skeys = [np.empty(self.stage_cap, np.uint64) for _ in range(2)]
+            self._svals = [np.empty(self.stage_cap, np.int64) for _ in range(2)]
+            self._scur = 0
+            self._sn = 0
+        # Plane-local tallies: the dispatch thread owns them; the router
+        # publishes copies per window and collect() writes the finals.
+        self.dispatch_s = 0.0        # thread seconds in scatter/pack/copy/merge
+        self.stall_s = 0.0           # router blocked on a full queue + join
+        self.device_wait_s = 0.0
+        self.spill_events = 0
+        self.spilled_keys = 0
+        self.merge_dispatches = 0
+        self.records_shipped = 0
+        self.error: "BaseException | None" = None
+        self.poisoned = threading.Event()
+        self._finished = False
+        stats.dispatch_mode = ("sync" if self.sync else "async") \
+            + ("+coalesce" if self.coalesce else "")
+        if self.sync:
+            self._q = None
+            self._thread = None
+            return
+        self._q: queue.Queue = queue.Queue(maxsize=self._QUEUE_DEPTH)
+        self._thread = threading.Thread(target=self._loop, name="mr/dispatch",
+                                        daemon=True)
+        self._thread.start()
+
+    # ---- dispatch thread ----
+
+    def _loop(self) -> None:
+        q = self._q
+        saw_sentinel = False
+        try:
+            if self.device.type == "cuda":
+                # This thread launches the merges and reads ev_count back:
+                # it must run on the job's card, whatever the default.
+                torch.cuda.set_device(self.device)
+            while True:
+                item = q.get()
+                if item is self._SENTINEL:
+                    saw_sentinel = True
+                    if not self.poisoned.is_set():
+                        self._finalize()
+                    return
+                if self.poisoned.is_set():
+                    continue  # poisoned: drain, don't dispatch
+                self._handle(item)
+        except BaseException as e:
+            self.error = e
+            self.poisoned.set()
+            if not saw_sentinel:
+                # Keep consuming (discarding) until the sentinel: the
+                # router's bounded put must never deadlock against a dead
+                # dispatch thread.
+                while q.get() is not self._SENTINEL:
+                    pass
+
+    def _handle(self, item) -> None:
+        """One window: scatter back to exact scan order, apply the
+        filtering app's mask, stamp values, then coalesce or dispatch."""
+        doc_id, kind, keys, counts, pos, mask = item
+        t0 = time.perf_counter()
+        if kind == "sharded":
+            # Grouped scan result: scatter keys/counts (and the mask,
+            # computed on grouped rows) back to EXACT scan order so the
+            # merge stream matches the unsharded engine's.
+            keys_d = np.empty_like(keys)
+            keys_d[pos] = keys
+            counts_d = np.empty_like(counts)
+            counts_d[pos] = counts
+            if mask is not None:
+                mask_d = np.empty(len(pos), dtype=bool)
+                mask_d[pos] = mask
+                keys_d, counts_d = keys_d[mask_d], counts_d[mask_d]
+            keys, counts = keys_d, counts_d
+        elif mask is not None:
+            keys, counts = keys[mask], counts[mask]
+        values = self.app.host_values(counts, doc_id)
+        if self.coalesce:
+            self._coalesce_window(keys, values)
+        else:
+            # Scan order, split at cap.
+            cap = self.cap
+            for start in range(0, len(keys), cap):
+                ks = keys[start: start + cap]
+                self._dispatch(ks[:, 0], ks[:, 1],
+                               np.asarray(values[start: start + cap], dtype=np.uint32))
+        self.dispatch_s += time.perf_counter() - t0
+
+    def _coalesce_window(self, keys: np.ndarray, values) -> None:
+        packed = (keys[:, 0].astype(np.uint64) << np.uint64(32)) \
+            | keys[:, 1].astype(np.uint64)
+        order = np.argsort(packed, kind="stable")
+        pk = np.ascontiguousarray(packed[order])
+        pv = np.ascontiguousarray(np.asarray(values, dtype=np.int64)[order])
+        n = len(pk)
+        if self._sn + n > self.stage_cap:
+            # The merged result may not fit: flush first. Conservative
+            # (duplicates could have made it fit), but deterministic.
+            self._flush_staging()
+        if n >= self.stage_cap:
+            # A window wider than the whole staging buffer ships directly,
+            # in sorted cap-sized slices.
+            for start in range(0, n, self.cap):
+                self._dispatch_packed(pk[start: start + self.cap],
+                                      pv[start: start + self.cap])
+            return
+        cur, nxt = self._scur, 1 - self._scur
+        m = coalesce_updates_into(
+            self._skeys[cur], self._svals[cur], self._sn, pk, pv,
+            self._skeys[nxt], self._svals[nxt],
+        )
+        self._scur, self._sn = nxt, m
+        if self._sn >= self.fill_threshold:
+            self._flush_staging()
+
+    def _flush_staging(self) -> None:
+        """Ship the staging buffer as cap-sized packed merges (sorted,
+        pre-summed): every merge but the tail goes out full."""
+        if not self.coalesce or self._sn == 0:
+            return
+        cur, n = self._scur, self._sn
+        self._sn = 0
+        for start in range(0, n, self.cap):
+            # Clip the tail at the FILL, not the buffer: slots beyond n
+            # are stale and must never ship as records.
+            end = min(start + self.cap, n)
+            self._dispatch_packed(self._skeys[cur][start:end],
+                                  self._svals[cur][start:end])
+
+    def _dispatch_packed(self, pk: np.ndarray, pv: np.ndarray) -> None:
+        # int64 staging counts → the uint32 bit pattern the packed layout
+        # carries (the device accumulates in int32 two's complement, so
+        # pre-summing mod 2^32 is bit-exact against per-window merges).
+        self._dispatch(
+            (pk >> np.uint64(32)).astype(np.uint32),
+            (pk & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            pv.astype(np.uint32),
+        )
+
+    def _dispatch(self, k1: np.ndarray, k2: np.ndarray, vals: np.ndarray) -> None:
+        self._stager.pack(k1, k2, vals)
+        self.state, evicted, ev_count = self.merge_packed(
+            self.state, self._stager.to_device()
+        )
+        self.pending.append((ev_count, evicted))
+        self.merge_dispatches += 1
+        self.records_shipped += len(k1)
+        if len(self.pending) >= 2 * self.depth:
+            self._drain(self.depth)
+
+    def _drain(self, n: int) -> None:
+        # One batched readback of n merges' eviction counts: where the
+        # dispatch side waits for the device.
+        if n <= 0:
+            return
+        batch = [self.pending.popleft() for _ in range(n)]
+        t0 = time.perf_counter()
+        counts = torch.stack([ev for ev, _ in batch]).cpu().tolist()
+        self.device_wait_s += time.perf_counter() - t0
+        for (_ev, evicted), ev_n in zip(batch, counts):
+            if ev_n > 0:
+                self.spill_events += 1
+                self.spilled_keys += ev_n
+                self.acc.add_batch(evicted)
+
+    def _finalize(self) -> None:
+        """End of stream: flush staging, resolve every pending merge. After
+        it ``self.state`` is the complete device fold."""
+        self._flush_staging()
+        self._drain(len(self.pending))
+
+    # ---- router side ----
+
+    def _raise_error(self) -> None:
+        if self.error is not None:
+            raise self.error
+        raise RuntimeError("dispatch plane poisoned without a recorded error")
+
+    def submit(self, item) -> None:
+        """Hand one window to the plane — O(1) for the router (sync mode
+        runs it inline). Time blocked on a full queue is dispatch
+        backpressure, booked into ``stall_s``."""
+        if self.sync:
+            self._handle(item)
+            return
+        if self.poisoned.is_set():
+            self._raise_error()
+        try:
+            self._q.put_nowait(item)
+            return
+        except queue.Full:
+            pass
+        t0 = time.perf_counter()
+        try:
+            while True:
+                if self.poisoned.is_set():
+                    self._raise_error()
+                try:
+                    self._q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+        finally:
+            self.stall_s += time.perf_counter() - t0
+
+    def finish(self) -> None:
+        """Clean end of stream: sentinel, join, surface any dispatch error.
+        The join wall counts as dispatch stall."""
+        if self._finished:
+            return
+        self._finished = True
+        if self.sync:
+            self._finalize()
+            return
+        t0 = time.perf_counter()
+        self._q.put(self._SENTINEL)
+        self._thread.join()
+        self.stall_s += time.perf_counter() - t0
+        if self.poisoned.is_set():
+            self._raise_error()
+
+    def abort(self) -> None:
+        """Exception-path teardown: poison, force a sentinel past a full
+        queue by displacing one item, reap the thread. Idempotent, never
+        raises, never blocks forever."""
+        self.poisoned.set()
+        if self._finished:
+            return
+        self._finished = True
+        if self.sync:
+            return
+        while True:
+            try:
+                self._q.put_nowait(self._SENTINEL)
+                break
+            except queue.Full:
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    pass
+        self._thread.join(timeout=10)
+
+    def mean_fill_frac(self) -> float:
+        if not self.merge_dispatches:
+            return 0.0
+        return self.records_shipped / (self.merge_dispatches * self.cap)
+
+    def collect(self, stats: JobStats) -> None:
+        """Write the plane's tallies into JobStats. Router thread only;
+        called with the dispatch thread finished or reaped (its counters
+        are plain cells written by that thread alone)."""
+        stats.dispatch_s = self.dispatch_s
+        stats.dispatch_stall_s = self.stall_s
+        stats.merge_dispatches = self.merge_dispatches
+        stats.merge_fill_frac = round(self.mean_fill_frac(), 6)
+        stats.device_wait_s = self.device_wait_s
+        stats.spill_events = self.spill_events
+        stats.spilled_keys = self.spilled_keys
+
+
+class _FoldShardPlane:
+    """The sharded egress fold: S fold threads, each the SOLE owner of one
+    key-hash-disjoint dictionary shard (runtime/dictionary
+    .ShardedDictionary), fed per-window per-shard slices by the router
+    over bounded queues. The router never touches shard state (it only
+    enqueues read-only slices of the scan result); a fold thread never
+    touches another shard.
+
+    Failure containment: a fold thread that raises records its error,
+    flips the shared poison flag and keeps draining its queue until the
+    sentinel, so the router's bounded put never deadlocks; the router
+    surfaces the error at its next route or at ``finish``. ``abort``
+    poisons every shard, forces sentinels past full queues and reaps the
+    threads without ever blocking forever.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(self, shards) -> None:
+        self.n = len(shards)
+        self.shards = shards
+        # Bounded per-shard queues: each entry pins one window's grouped
+        # scan arrays (shared read-only across shards), so fold memory is
+        # O(depth × window result), never O(corpus).
+        self.queues = [queue.Queue(maxsize=8) for _ in range(self.n)]
+        self.errors: list = [None] * self.n
+        self.poisoned = threading.Event()
+        self.fold_s = [0.0] * self.n
+        self.stall_s = 0.0  # router side: blocked puts + end-of-stream join
+        self._finished = False
+        self.threads = [
+            threading.Thread(target=self._loop, args=(s,), name=f"mr/fold-{s}",
+                             daemon=True)
+            for s in range(self.n)
+        ]
+        for t in self.threads:
+            t.start()
+
+    # ---- fold threads ----
+
+    def _loop(self, s: int) -> None:
+        shard = self.shards[s]
+        q = self.queues[s]
+        try:
+            while True:
+                item = q.get()
+                if item is self._SENTINEL:
+                    return
+                if self.poisoned.is_set():
+                    continue  # another shard failed: drain, don't fold
+                t0 = time.perf_counter()
+                self._fold_one(shard, item)
+                self.fold_s[s] += time.perf_counter() - t0
+        except BaseException as e:
+            self.errors[s] = e
+            self.poisoned.set()
+            while q.get() is not self._SENTINEL:
+                pass
+
+    @staticmethod
+    def _fold_one(shard: Dictionary, item) -> None:
+        # Pre-partitioned native scan: rows [lo, hi) and one contiguous
+        # word-bytes span belong to this shard.
+        raw, ends, keys, lo, hi, mask = item
+        base = int(ends[lo - 1]) if lo else 0
+        fold_scan_into_dictionary(
+            shard, mask[lo:hi] if mask is not None else None, "raw",
+            (raw[base:int(ends[hi - 1])], ends[lo:hi] - base, keys[lo:hi]),
+        )
+
+    # ---- router side ----
+
+    def _raise_error(self) -> None:
+        for e in self.errors:
+            if e is not None:
+                raise e
+        raise RuntimeError("fold plane poisoned without a recorded error")
+
+    def _put(self, s: int, item) -> None:
+        if self.poisoned.is_set():
+            self._raise_error()
+        q = self.queues[s]
+        try:
+            q.put_nowait(item)
+            return
+        except queue.Full:
+            pass
+        # Blocked = fold backpressure, timed apart from glue.
+        t0 = time.perf_counter()
+        try:
+            while True:
+                if self.poisoned.is_set():
+                    self._raise_error()
+                try:
+                    q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+        finally:
+            self.stall_s += time.perf_counter() - t0
+
+    def route_raw(self, raw, ends, keys, shard_counts, mask) -> None:
+        """Hand each shard its slice of one pre-partitioned scan result:
+        O(shards) router work per window."""
+        cum = 0
+        for s, c in enumerate(shard_counts.tolist()):
+            lo, hi = cum, cum + c
+            cum = hi
+            if c:
+                self._put(s, (raw, ends, keys, lo, hi, mask))
+
+    def finish(self) -> None:
+        """Clean end of stream: sentinel every queue, join every thread,
+        surface any fold error."""
+        if self._finished:
+            return
+        self._finished = True
+        t0 = time.perf_counter()
+        for q in self.queues:
+            q.put(self._SENTINEL)
+        for t in self.threads:
+            t.join()
+        self.stall_s += time.perf_counter() - t0
+        if self.poisoned.is_set():
+            self._raise_error()
+
+    def abort(self) -> None:
+        """Exception-path teardown. Idempotent, never raises, never blocks
+        forever."""
+        self.poisoned.set()
+        if self._finished:
+            return
+        self._finished = True
+        for q in self.queues:
+            while True:
+                try:
+                    q.put_nowait(self._SENTINEL)
+                    break
+                except queue.Full:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        pass
+        for t in self.threads:
+            t.join(timeout=10)
+
+    def collect(self, stats: JobStats) -> None:
+        stats.fold_s = sum(self.fold_s)
+        stats.fold_stall_s = self.stall_s
+
+
+_CUT_PROBE = 1 << 16  # how far back a window cut searches for whitespace
+
+
+def _iter_windows(cfg: Config, inputs, stats: JobStats):
+    """(doc_id, raw window view) stream — zero-copy uint8 views over each
+    memory-mapped input, cut at ASCII whitespace (safe before
+    normalization, which never alters ASCII bytes). Only the last
+    _CUT_PROBE bytes of a window are materialized to find the cut; a
+    window whose final 64 KiB holds no whitespace is force-cut at a UTF-8
+    sequence boundary and counted in stats.forced_cuts."""
+    import mmap
+
+    for doc_id, path in enumerate(inputs):
+        size = os.path.getsize(path)
+        stats.bytes_in += size
+        if size == 0:
+            continue
+        mm = np.memmap(path, dtype=np.uint8, mode="r")
+        try:  # sequential readahead: fault whole extents, not page by page
+            mm._mmap.madvise(mmap.MADV_SEQUENTIAL)
+        except (AttributeError, OSError, ValueError):
+            pass
+        start = 0
+        while start < size:
+            end = min(start + cfg.host_window_bytes, size)
+            if end < size:
+                probe_at = max(start, end - _CUT_PROBE)
+                tail = mm[probe_at:end].tobytes()
+                off, forced = _ws_cut(tail, 0, len(tail))
+                if forced:
+                    stats.forced_cuts += 1
+                    off = utf8_safe_cut(tail, off)
+                cut = probe_at + off
+            else:
+                cut = end
+            yield doc_id, mm[start:cut]
+            start = cut
+
+
+def _py_scan_count(window: bytes):
+    """Plain version of scan_count_raw: (unique words in first occurrence
+    order, hash pairs uint32 [n, 2], counts uint32 [n]) of RAW bytes.
+    Tests hold the native scan to it; no production path calls it."""
+    counter = collections.Counter(extract_words(normalize_python(bytes(window))))
+    words = list(counter.keys())
+    keys = hash_words(words)
+    counts = np.asarray([counter[w] for w in words], dtype=np.uint32)
+    return words, keys, counts
+
+
+def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
+                     acc: HostAccumulator, dictionary, device: torch.device) -> None:
+    """The host-map engine: one fused native pass per window normalizes,
+    tokenizes, dedupes, hashes and counts on the host — the very scan that
+    feeds the egress dictionary — and the device merges the compacted
+    updates. The map runs where the Rust original's map runs, on the CPU
+    (src/app/wc.rs:6-13); the card holds the running combine state.
+
+    The scan fans out: ``host_map_workers`` threads run the GIL-releasing
+    native scan concurrently (per-thread scratch arenas isolate them)
+    while THIS thread, the router, consumes results strictly in window
+    order, so outputs are identical for any worker count. In-flight scans
+    are bounded (2 × workers + 2), so host memory stays flat.
+
+    With a ShardedDictionary the fold fans out too: the native scan
+    returns each window pre-partitioned by key-hash shard, the router
+    hands shard s its slice, and S fold threads (each the sole owner of
+    one shard) fold in window order. The device merge stream is scattered
+    back to exact scan order by the dispatch plane, so merges, evictions
+    and outputs are identical for every (workers, shards) pair."""
+    workers = cfg.effective_host_map_workers()
+    stats.host_map_workers = workers
+    fold_n = dictionary.n_shards if isinstance(dictionary, ShardedDictionary) else 1
+    stats.fold_shards = fold_n
+    fold: "_FoldShardPlane | None" = None  # started right before the try
+    dispatch = _DispatchPlane(cfg, app, stats, acc, device)
+
+    def scan_window(item):
+        # PURE: reads its window, returns its result and its own duration.
+        # No shared state is written off the router thread, so an
+        # abandoned scan (exception teardown) cannot touch stats.
+        doc_id, window = item
+        t0 = time.perf_counter()
+        if fold is not None:
+            out = (doc_id, "raw_sharded", scan_count_sharded_raw(window, fold.n))
+        else:
+            out = (doc_id, "raw", scan_count_raw(window))
+        return (*out, time.perf_counter() - t0)
+
+    def consume(result) -> None:
+        doc_id, kind, res, scan_s = result
+        stats.host_map_s += scan_s  # summed over workers
+        t_glue = time.perf_counter()
+        stall0 = fold.stall_s if fold is not None else 0.0
+        dstall0 = dispatch.stall_s
+        dwait0 = dispatch.device_wait_s
+        stats.chunks += 1
+        if kind == "raw_sharded":
+            raw, ends, keys, counts, pos, shard_counts = res
+            mask = app.host_mask(keys)  # grouped rows; per-row exact
+            fold.route_raw(raw, ends, keys, shard_counts, mask)
+            dispatch.submit((doc_id, "sharded", keys, counts, pos, mask))
+        else:
+            raw, ends, keys, counts = res
+            mask = app.host_mask(keys)
+            fold_scan_into_dictionary(dictionary, mask, "raw", (raw, ends, keys))
+            dispatch.submit((doc_id, "flat", keys, counts, None, mask))
+        # Glue is the router's own work: time blocked on full shard or
+        # dispatch queues is backpressure (fold_stall_s, dispatch_stall_s).
+        # In sync mode the inline dispatch is glue, less its blocking
+        # readback, which device_wait_s owns.
+        glue_dt = time.perf_counter() - t_glue
+        if fold is not None:
+            glue_dt = max(glue_dt - (fold.stall_s - stall0), 0.0)
+        if dispatch.sync:
+            glue_dt = max(glue_dt - (dispatch.device_wait_s - dwait0), 0.0)
+        else:
+            glue_dt = max(glue_dt - (dispatch.stall_s - dstall0), 0.0)
+        stats.host_glue_s += glue_dt
+
+    inflight: collections.deque = collections.deque()
+    budget = 2 * workers + 2
+
+    def next_result():
+        fut = inflight.popleft()
+        t0 = time.perf_counter()
+        res = fut.result()
+        stats.scan_wait_s += time.perf_counter() - t0
+        return res
+
+    pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="mr/scan")
+    if fold_n > 1:
+        # Started HERE: everything that can raise during setup is behind
+        # us, and the very next statement is the try that owns teardown.
+        try:
+            fold = _FoldShardPlane(dictionary.shards)
+        except BaseException:
+            dispatch.abort()
+            pool.shutdown(wait=True, cancel_futures=True)
+            raise
+    try:
+        for item in _iter_windows(cfg, inputs, stats):
+            inflight.append(pool.submit(scan_window, item))
+            if len(inflight) >= budget:
+                consume(next_result())
+        while inflight:
+            consume(next_result())
+        stats.host_arena_bytes = arena_bytes()
+        if fold is not None:
+            # Teardown order: the router has routed every scan result,
+            # THEN the fold threads flush and join, THEN the dispatch plane
+            # flushes its staging buffer and drains the device merges.
+            fold.finish()
+        dispatch.finish()
+    except BaseException:
+        if fold is not None:
+            fold.abort()
+        dispatch.abort()
+        raise
+    finally:
+        if fold is not None:
+            fold.collect(stats)  # threads joined by finish()/abort()
+        dispatch.collect(stats)
+        # Queued scans cancel; the running ones finish their pure work and
+        # are reaped before the stream frame exits.
+        pool.shutdown(wait=True, cancel_futures=True)
+    acc.add_batch(dispatch.state)
 
 
 def run_job(
@@ -402,12 +1225,21 @@ def run_job(
 
     stats = JobStats()
     acc = HostAccumulator(app.combine_op)
-    dictionary = Dictionary()
+    # The host-map engine splits the dictionary into key-hash-disjoint
+    # shards, one per fold thread; the device engine folds on its consumer.
+    fold_shards = cfg.effective_fold_shards() if cfg.map_engine == "host" else 1
+    if fold_shards > 1:
+        dictionary = ShardedDictionary([Dictionary() for _ in range(fold_shards)])
+    else:
+        dictionary = Dictionary()
     output_files: list[str] = []
     table: dict = {}
 
     with stats.phase("stream"):
-        _stream_single(cfg, app, inputs, stats, acc, dictionary, device)
+        if cfg.map_engine == "host":
+            _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
+        else:
+            _stream_single(cfg, app, inputs, stats, acc, dictionary, device)
 
     with stats.phase("finalize"):
         stats.distinct_keys = len(acc.table)

@@ -1,8 +1,9 @@
 """Job metrics & phase timing — per phase, never per record.
 
 The port of ``mapreduce_rust_tpu/runtime/metrics.py::JobStats`` for the
-counters the single-device path fills, under the reference's names, so a
-port run and a reference run compare field by field. The live metrics
+counters the single-device engines (device and host-map) fill, under the
+reference's names, so a port run and a reference run compare field by
+field. The live metrics
 registry, histograms and tracing come with a later slice.
 """
 
@@ -34,6 +35,22 @@ class JobStats:
     # ingest (read→normalize→chunk) vs blocked on device results.
     ingest_wait_s: float = 0.0
     device_wait_s: float = 0.0
+    # Host-map engine (map_engine="host"): the scan pool, the router's own
+    # work, the fold shards and the dispatch plane, each in seconds.
+    host_map_workers: int = 0
+    fold_shards: int = 0
+    host_map_s: float = 0.0       # scan seconds summed over the workers
+    host_glue_s: float = 0.0      # router work per window, stalls excluded
+    scan_wait_s: float = 0.0      # router blocked on the oldest scan
+    dispatch_s: float = 0.0       # dispatch-thread scatter/pack/copy/merge
+    dispatch_stall_s: float = 0.0  # router blocked on the dispatch plane
+    dispatch_mode: str = ""       # "sync"|"async" [+coalesce]
+    merge_dispatches: int = 0     # packed device merges
+    merge_fill_frac: float = 0.0  # records shipped / (dispatches × cap)
+    fold_s: float = 0.0           # dictionary fold seconds (device engine:
+                                  # its consumer; host engine: summed over shards)
+    fold_stall_s: float = 0.0     # router blocked on full shard queues
+    host_arena_bytes: int = 0     # live native scan arenas at stream end
 
     @property
     def gb_per_s(self) -> float:
@@ -41,7 +58,16 @@ class JobStats:
 
     @property
     def bottleneck(self) -> str:
-        parts = {"host-ingest": self.ingest_wait_s, "device": self.device_wait_s}
+        # With several scan workers the summed host_map_s is no wall time;
+        # the router's wait on the oldest scan is. Off-router planes (fold
+        # shards, async dispatch) name themselves by the router's stall.
+        scan = self.host_map_s if self.host_map_workers <= 1 else self.scan_wait_s
+        parts = {"host-ingest": self.ingest_wait_s, "device": self.device_wait_s,
+                 "host-map": scan, "host-glue": self.host_glue_s}
+        if self.fold_shards > 1:
+            parts["host-fold"] = self.fold_stall_s
+        if self.dispatch_mode.startswith("async"):
+            parts["merge-dispatch"] = self.dispatch_stall_s
         name, val = max(parts.items(), key=lambda kv: kv[1])
         return name if val > 0 else "balanced"
 
@@ -66,4 +92,9 @@ class JobStats:
             f"collisions={self.hash_collisions} unknown={self.unknown_keys} "
             f"waits[ingest={self.ingest_wait_s:.2f}s device={self.device_wait_s:.2f}s "
             f"→ {self.bottleneck}] [{phases}]"
+            + (f" host[workers={self.host_map_workers} shards={self.fold_shards} "
+               f"scan={self.host_map_s:.2f}s glue={self.host_glue_s:.2f}s "
+               f"fold={self.fold_s:.2f}s dispatch={self.dispatch_s:.2f}s "
+               f"merges={self.merge_dispatches} fill={self.merge_fill_frac:.3f} "
+               f"{self.dispatch_mode}]" if self.dispatch_mode else "")
         )

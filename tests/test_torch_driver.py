@@ -25,6 +25,7 @@ from mapreduce_rust_tpu_torch.__main__ import main as cli_main
 from mapreduce_rust_tpu_torch.config import NOT_PORTED, Config
 from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
+from mapreduce_rust_tpu_torch.runtime import driver
 from mapreduce_rust_tpu_torch.runtime.chunker import chunk_stream
 from mapreduce_rust_tpu_torch.runtime.driver import merge_outputs, run_job
 
@@ -91,14 +92,26 @@ def assert_same_files(want, got):
 
 
 @pytest.mark.parametrize("reduce_n", [1, 4])
-def test_output_parity(corpus, reference, tmp_path, reduce_n):
+def test_output_parity(corpus, reference, tmp_path, reduce_n, monkeypatch):
     ref = reference("parity", reduce_n)
+    scanned = []
+    real_scan = driver.scan_unique_raw
+
+    def spy(payload):
+        scanned.append(len(payload))
+        return real_scan(payload)
+
+    # The dictionary scan is the native one, once per chunk.
+    monkeypatch.setattr(driver, "scan_unique_raw", spy)
     before = hash_scan.launches, tokenize_hash.launches
     res = run_job(port_config(corpus, tmp_path, "parity", reduce_n))
     # The CPU path never launches the kernel.
     assert (hash_scan.launches, tokenize_hash.launches) == before
+    assert len(scanned) == res.stats.chunks == ref.stats.chunks
     assert_same_files(ref.output_files, res.output_files)
     assert res.stats.distinct_keys == ref.stats.distinct_keys
+    assert res.stats.dictionary_words == ref.stats.dictionary_words
+    assert res.stats.hash_collisions == ref.stats.hash_collisions == 0
     assert res.stats.unknown_keys == ref.stats.unknown_keys == 0
     assert res.stats.spilled_keys == ref.stats.spilled_keys
     assert res.stats.partial_overflow_replays == ref.stats.partial_overflow_replays == 0
@@ -169,9 +182,11 @@ _GATE = """
 import sys
 from mapreduce_rust_tpu_torch.config import Config
 from mapreduce_rust_tpu_torch.runtime.driver import run_job
-res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
-                     output_dir=sys.argv[2], work_dir=sys.argv[2]))
-assert res.table == {b"hello": 2, b"world": 1}, res.table
+for engine in ("device", "host"):
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2], work_dir=sys.argv[2],
+                         map_engine=engine, fold_shards=2))
+    assert res.table == {b"hello": 2, b"world": 1, "café".encode(): 1}, res.table
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
@@ -181,7 +196,7 @@ sys.exit(3 if bad else 0)
 
 def test_port_is_jax_free(tmp_path):
     (tmp_path / "in").mkdir()
-    (tmp_path / "in" / "a.txt").write_bytes(b"hello world hello\n")
+    (tmp_path / "in" / "a.txt").write_bytes("hello world hello café\n".encode())
     r = subprocess.run(
         [sys.executable, "-c", _GATE, str(tmp_path / "in"), str(tmp_path / "out")],
         capture_output=True, text=True, timeout=120, cwd=REPO,
@@ -222,7 +237,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
 
 @pytest.mark.parametrize("field", sorted(NOT_PORTED))
 def test_config_rejects_unported_fields(field):
-    value = {"map_engine": "host", "mesh_shape": 2, "input_dirs": (("a", "x"),)}.get(
+    value = {"mesh_shape": 2, "input_dirs": (("a", "x"),)}.get(
         field, 1 if NOT_PORTED[field] in (None, 0, False) else None)
     with pytest.raises(NotImplementedError, match=field):
         Config(**{field: value})
