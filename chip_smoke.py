@@ -32,7 +32,8 @@ one JSON line; any failure raises and ends the run:
               generator's counts;
    step     — the device time of one main-path step (map_combine + merge)
               on a 4 MiB chunk of that corpus, against the host's time per
-              chunk in the main phase;
+              chunk in the main phase (step-ii: the same for
+              inverted_index's "distinct" step in the ii phase);
 6. evict    — the same corpus with merge_capacity=2^18, so evicted tails
               flow to the host accumulator on every merge; exact as well;
 7. host     — the same corpus through the host-map engine
@@ -42,9 +43,35 @@ one JSON line; any failure raises and ends the run:
 8. host-evict — the host engine with merge_capacity=2^18, no coalescing,
               sync dispatch: the pinned stager's event barrier on every
               merge; exact, keys spilled;
-9. cli      — a few-MB unicode/punctuation corpus through
+9. ii       — a seeded 256 MiB Zipf corpus in 8 documents (the generator
+              of the reference bench's inverted-index leg) through
+              inverted_index on the device engine, default Config: every
+              posting list equal to its row of the generator's presence
+              matrix; evictions cut posting sets, the host unions them;
+   ii-host  — the same job on the host engine with a 2^18-key state and
+              16 MiB windows;
+   grep     — grep on the device engine over documents 0-3, for the words
+              of five ranks and one word outside the vocabulary: each line
+              equal to the presence row, no line for an absent word;
+   join     — join on the host engine, corpus a = documents 0-3, b = 4-7:
+              for every rank on both sides exactly the cross product of
+              its relative doc ids;
+   top_k    — top_k (k = 20) on the device engine over documents 0-1,
+              equal to the generator's 20 best by (-count, word);
+10. sort / sort-host — a seeded 48 MiB Zipf corpus through sort on each
+              engine: mr-{r}.txt concatenated in partition order is in
+              order and holds exactly the generator's counts; partition
+              skew and the splitter pre-pass reported;
+11. cli     — a few-MB unicode/punctuation corpus through
               ``python -m mapreduce_rust_tpu_torch run``, once per engine,
-              checked against the port's reference_word_counts.
+              checked against the port's reference_word_counts; then
+              ``--app grep --query ...`` and ``--app join --input a=DIR
+              b=DIR`` on it, against oracles from reference_word_counts
+              per file.
+
+Every job phase checks unknown_keys == 0 and hash_collisions == 0 and
+prints its wall, phase seconds, device_wait_s, spills and tokenize_hash
+launches (above 0 on the device engine, 0 on the host engine).
 
 Then the card's nvidia-smi line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Kernel launch counts are reset just
@@ -79,6 +106,13 @@ ZIPF_S = 1.05
 ZIPF_SEED = 20260730
 ZIPF_BYTES = 256 << 20
 ZIPF_FILES = 4
+#: The inverted-index corpus: the reference bench's zipf-ii leg
+#: (bench.py:345-398), 8 documents, its own seed.
+II_SEED = 20260731
+II_BYTES = 256 << 20
+II_DOCS = 8
+#: The sort corpus: the reference bench's sort leg size (bench.py:517).
+SORT_BYTES = 48 << 20
 #: Host time per 4 MiB chunk of the main path before the native scan, ms
 #: (PERF.md §5: chip_smoke.py main phase, NVIDIA H100 80GB HBM3, 700 W).
 HOST_MS_PER_CHUNK_PYTHON_SCAN = (672, 1539)
@@ -379,32 +413,75 @@ def phase_native(zipf_dir: pathlib.Path, text_blob: bytes) -> None:
     emit(out)
 
 
-def write_zipf_corpus(dirpath: pathlib.Path):
-    """ZIPF_FILES files of 8-byte tokens b'w%06x ' drawn Zipf(s) over
-    ZIPF_VOCAB ranks by inverse-CDF sampling; returns the generator-side
-    count of every rank (the ground truth)."""
+def _zipf_sampler():
+    """(cdf, token table): the inverse-CDF Zipf(ZIPF_S) sampler over
+    ZIPF_VOCAB ranks; rank r is the fixed 8-byte token b'w%06x '."""
     import numpy as np
 
-    rng = np.random.default_rng(ZIPF_SEED)
     weights = 1.0 / np.arange(1, ZIPF_VOCAB + 1, dtype=np.float64) ** ZIPF_S
     cdf = np.cumsum(weights)
     cdf /= cdf[-1]
     table = np.frombuffer(
         b"".join(b"w%06x " % r for r in range(ZIPF_VOCAB)), dtype=np.uint8
     ).reshape(ZIPF_VOCAB, 8)
+    return cdf, table
+
+
+def _write_tokens(f, rng, cdf, table, n_tokens: int, on_block) -> None:
+    """n_tokens sampled tokens into f in 4M-token blocks, then a newline;
+    on_block(ranks) records the ground truth."""
+    import numpy as np
+
+    left = n_tokens
+    while left > 0:
+        block = min(left, 4 << 20)
+        ranks = np.searchsorted(cdf, rng.random(block))
+        on_block(ranks)
+        f.write(table[ranks].tobytes())
+        left -= block
+    f.write(b"\n")
+
+
+def write_zipf_corpus(dirpath: pathlib.Path, total_bytes: int = ZIPF_BYTES,
+                      files: int = ZIPF_FILES):
+    """``files`` files of 8-byte tokens b'w%06x ' drawn Zipf(s) over
+    ZIPF_VOCAB ranks by inverse-CDF sampling; returns the generator-side
+    count of every rank (the ground truth)."""
+    import numpy as np
+
+    rng = np.random.default_rng(ZIPF_SEED)
+    cdf, table = _zipf_sampler()
     counts = np.zeros(ZIPF_VOCAB, dtype=np.int64)
-    per_file = ZIPF_BYTES // 8 // ZIPF_FILES
-    for i in range(ZIPF_FILES):
+    for i in range(files):
         with open(dirpath / f"part-{i}.txt", "wb") as f:
-            left = per_file
-            while left > 0:
-                block = min(left, 4 << 20)
-                ranks = np.searchsorted(cdf, rng.random(block))
-                counts += np.bincount(ranks, minlength=ZIPF_VOCAB)
-                f.write(table[ranks].tobytes())
-                left -= block
-            f.write(b"\n")
+            _write_tokens(f, rng, cdf, table, total_bytes // 8 // files,
+                          lambda ranks: counts.__iadd__(
+                              np.bincount(ranks, minlength=ZIPF_VOCAB)))
     return counts
+
+
+def write_ii_corpus(dirpath: pathlib.Path):
+    """The zipf-ii corpus (bench.py:345-398): II_DOCS documents doc-{d}.txt
+    of (II_BYTES // (8 * II_DOCS) + 1) tokens each, seed II_SEED. Returns
+    (presence bool [ZIPF_VOCAB, II_DOCS], counts of documents 0-1 per
+    rank) — the ground truth of every app phase on it."""
+    import numpy as np
+
+    rng = np.random.default_rng(II_SEED)
+    cdf, table = _zipf_sampler()
+    presence = np.zeros((ZIPF_VOCAB, II_DOCS), dtype=bool)
+    counts01 = np.zeros(ZIPF_VOCAB, dtype=np.int64)
+    per_doc = II_BYTES // (8 * II_DOCS) + 1
+    for d in range(II_DOCS):
+        def on_block(ranks, d=d):
+            c = np.bincount(ranks, minlength=ZIPF_VOCAB)
+            presence[:, d] |= c > 0
+            if d < 2:
+                counts01[:] += c
+
+        with open(dirpath / f"doc-{d}.txt", "wb") as f:
+            _write_tokens(f, rng, cdf, table, per_doc, on_block)
+    return presence, counts01
 
 
 def check_zipf_outputs(files, truth) -> int:
@@ -427,38 +504,46 @@ def check_zipf_outputs(files, truth) -> int:
     return lines
 
 
-def drive_job(name: str, corpus: pathlib.Path, work: pathlib.Path, truth, **cfg_kw):
+def drive_job(name: str, work: pathlib.Path, check_outputs, app=None,
+              corpus: "pathlib.Path | None" = None, **cfg_kw):
+    """One run_job through the port's entry point on the card, with the
+    kernel launch counts set to 0 just before and read just after;
+    ``check_outputs(res)`` holds the outputs to the generator's truth and
+    returns the phase's own fields."""
     import torch
 
     from mapreduce_rust_tpu_torch.config import Config
     from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
     from mapreduce_rust_tpu_torch.runtime.driver import run_job
 
-    cfg = Config(input_dir=str(corpus), output_dir=str(work / f"{name}-out"),
-                 work_dir=str(work / f"{name}-work"), reduce_n=8, **cfg_kw)
+    if corpus is not None:
+        cfg_kw["input_dir"] = str(corpus)
+    cfg = Config(output_dir=str(work / f"{name}-out"), work_dir=str(work / f"{name}-work"),
+                 reduce_n=8, **cfg_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hash_scan.launches = tokenize_hash.launches = 0
-    res = run_job(cfg)
+    res = run_job(cfg, app=app)
     launches = {"hash_scan": hash_scan.launches, "tokenize_hash": tokenize_hash.launches}
     s = res.stats
     check(s.unknown_keys == 0, f"{name}: {s.unknown_keys} unknown keys")
     check(s.hash_collisions == 0, f"{name}: {s.hash_collisions} hash collisions")
-    lines = check_zipf_outputs(res.output_files, truth)
+    t0 = time.perf_counter()
+    fields = check_outputs(res)
     stream_s = s.phase_seconds["stream"]
-    out = {"phase": name, "exact": True, "map_engine": cfg.map_engine,
-           "launches": launches,
+    out = {"phase": name, "exact": True, "app": app.name if app else "word_count",
+           "map_engine": cfg.map_engine, "launches": launches,
            "wall_s": s.wall_seconds, "GB_per_s": s.gb_per_s, "bytes_in": s.bytes_in,
            "chunks": s.chunks, "device_wait_s": s.device_wait_s,
            "ingest_wait_s": s.ingest_wait_s, "distinct_keys": s.distinct_keys,
-           "output_lines": lines, "spilled_keys": s.spilled_keys,
-           "spill_events": s.spill_events,
+           **fields, "check_s": time.perf_counter() - t0,
+           "spilled_keys": s.spilled_keys, "spill_events": s.spill_events,
            "partial_overflow_replays": s.partial_overflow_replays,
            "phase_seconds": s.phase_seconds,
            "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
            "merge_capacity": cfg.merge_capacity}
     if cfg.map_engine == "device":
-        check(launches["tokenize_hash"] >= s.chunks, f"{name}: tokenize_hash launched "
+        check(launches["tokenize_hash"] >= s.chunks > 0, f"{name}: tokenize_hash launched "
               f"{launches['tokenize_hash']} times for {s.chunks} chunks")
         out.update(chunk_bytes=cfg.chunk_bytes,
                    host_ms_per_chunk=stream_s / s.chunks * 1e3,
@@ -479,10 +564,145 @@ def drive_job(name: str, corpus: pathlib.Path, work: pathlib.Path, truth, **cfg_
     return out
 
 
-def phase_step(corpus: pathlib.Path, main_run: dict) -> None:
-    """Device time of one main-path step (map_combine + merge) on a real
-    4 MiB Zipf chunk at the default Config's shapes, against the host's
-    wall time per chunk in the main phase."""
+def zipf_check(truth):
+    return lambda res: {"output_lines": check_zipf_outputs(res.output_files, truth)}
+
+
+def _hex_ranks(arr):
+    """Ranks of the fixed-width tokens b'w%06x' in columns 0-6 of a uint8
+    line matrix (one output line per row)."""
+    import numpy as np
+
+    hexd = arr[:, 1:7].astype(np.int64)
+    hexd = np.where(hexd >= ord("a"), hexd - (ord("a") - 10), hexd - ord("0"))
+    return (hexd * np.power(16, np.arange(5, -1, -1, dtype=np.int64))).sum(axis=1)
+
+
+def _rank(word: bytes) -> int:
+    check(len(word) == 7 and word[:1] == b"w", f"unexpected word {word!r}")
+    return int(word[1:], 16)
+
+
+def ii_check(presence):
+    """Every posting list equal to its row of the presence matrix."""
+    import numpy as np
+
+    def run(res):
+        got = np.zeros_like(presence)
+        lines = 0
+        for path in res.output_files:
+            with open(path, "rb") as fh:
+                for line in fh:
+                    w, v = line.rsplit(b" ", 1)
+                    r = _rank(w)
+                    check(not got[r].any(), f"word {w!r} emitted twice")
+                    docs = [int(x) for x in v.split(b",")]
+                    check(docs == sorted(set(docs)), f"posting list of {w!r} not sorted")
+                    got[r, docs] = True
+                    lines += 1
+        check(np.array_equal(got, presence), "posting lists differ from the generator's")
+        return {"output_lines": lines, "posting_pairs": int(presence.sum()),
+                "docs": presence.shape[1]}
+
+    return run
+
+
+def grep_check(presence, ranks, absent: bytes):
+    """One line per present query word, equal to its presence row; no line
+    for a query word that no document holds."""
+    def run(res):
+        want = sorted(b"w%06x %s" % (r, b",".join(b"%d" % d for d in presence[r].nonzero()[0]))
+                      for r in ranks if presence[r].any())
+        got = sorted(line for path in res.output_files
+                     for line in pathlib.Path(path).read_bytes().splitlines())
+        check(got == want, f"grep lines {got[:8]} differ from {want[:8]}")
+        check(all(not line.startswith(absent + b" ") for line in got),
+              "grep emitted the absent word")
+        return {"query_ranks": list(ranks), "output_lines": len(got)}
+
+    return run
+
+
+def join_check(presence, n_left: int):
+    """Every line 'w%06x a b' (a, b relative doc ids, single digits): the
+    set of lines is exactly the cross product per rank on both sides."""
+    import numpy as np
+
+    def run(res):
+        codes = []
+        for path in res.output_files:
+            data = pathlib.Path(path).read_bytes()
+            if not data:
+                continue
+            arr = np.frombuffer(data, dtype=np.uint8).reshape(-1, 12)
+            check(bool((arr[:, 0] == ord("w")).all() and (arr[:, 7] == 32).all()
+                       and (arr[:, 9] == 32).all() and (arr[:, 11] == 10).all()),
+                  "join line out of format")
+            ranks = _hex_ranks(arr)
+            a = arr[:, 8].astype(np.int64) - ord("0")
+            b = arr[:, 10].astype(np.int64) - ord("0")
+            codes.append(ranks * 100 + a * 10 + b)
+        got = np.sort(np.concatenate(codes)) if codes else np.zeros(0, np.int64)
+        left, right = presence[:, :n_left], presence[:, n_left:]
+        want = [np.nonzero(left[:, a] & right[:, b])[0] * 100 + a * 10 + b
+                for a in range(left.shape[1]) for b in range(right.shape[1])]
+        want = np.sort(np.concatenate(want))
+        check(np.array_equal(got, want), f"join: {len(got)} lines, want {len(want)}")
+        return {"output_lines": int(len(got)),
+                "keys_on_both_sides": int((left.any(1) & right.any(1)).sum())}
+
+    return run
+
+
+def topk_check(counts, k: int):
+    """mr-0.txt holds the k best (-count, word); the other partitions are
+    empty. Words are fixed-width hex, so word order is rank order."""
+    import numpy as np
+
+    def run(res):
+        order = np.lexsort((np.arange(len(counts)), -counts))[:k]
+        want = [b"w%06x %d" % (r, counts[r]) for r in order.tolist()]
+        got = [pathlib.Path(p).read_bytes().splitlines() for p in res.output_files]
+        check(got[0] == want, f"top_k lines {got[0][:4]} differ from {want[:4]}")
+        check(not any(got[1:]), "top_k wrote to a partition other than 0")
+        return {"k": k, "output_lines": len(got[0])}
+
+    return run
+
+
+def sort_check(truth):
+    """The reference bench's sort oracle (bench.py:455-485): every line is
+    the 8-byte b'w%06x\\n', mr-{r}.txt concatenated in partition order is
+    non-decreasing, and the rank counts equal the generator's."""
+    import numpy as np
+
+    def run(res):
+        got = np.zeros(len(truth), dtype=np.int64)
+        prev, lines = -1, 0
+        for path in res.output_files:  # partition order
+            data = pathlib.Path(path).read_bytes()
+            if not data:
+                continue
+            ranks = _hex_ranks(np.frombuffer(data, dtype=np.uint8).reshape(-1, 8))
+            check(bool(ranks[0] >= prev and (np.diff(ranks) >= 0).all()),
+                  f"sort output out of order in {path}")
+            prev = int(ranks[-1])
+            got += np.bincount(ranks, minlength=len(truth))
+            lines += len(ranks)
+        check(np.array_equal(got, truth), "sort output differs from the generator's counts")
+        s = res.stats
+        pb = s.partition_bytes
+        return {"output_lines": lines, "partition_mode": s.partition_mode,
+                "partition_bytes": pb, "skew": max(pb) / (sum(pb) / len(pb)),
+                "splitter_samples": s.splitter_samples, "splitter_s": s.splitter_s}
+
+    return run
+
+
+def phase_step(name: str, path: pathlib.Path, run: dict, app=None) -> None:
+    """Device time of one main-path step (map_combine + merge) of ``app``
+    on the first 4 MiB chunk of ``path`` at the default Config's shapes,
+    against the host's wall time per chunk in the phase ``run``."""
     import torch
 
     from mapreduce_rust_tpu_torch.apps.word_count import WordCount
@@ -492,10 +712,11 @@ def phase_step(corpus: pathlib.Path, main_run: dict) -> None:
     from mapreduce_rust_tpu_torch.runtime.driver import make_step_fns
 
     cfg = Config()
-    with open(corpus / "part-0.txt", "rb") as f:
+    app = app or WordCount()
+    with open(path, "rb") as f:
         chunk = next(chunk_stream(f, 0, cfg.chunk_bytes))
     x = torch.from_numpy(chunk.data).cuda()
-    map_combine, merge = make_step_fns(WordCount(), cfg.effective_partial_capacity())
+    map_combine, merge = make_step_fns(app, cfg.effective_partial_capacity())
     state = KVBatch.empty(cfg.merge_capacity, "cuda")
 
     def step():
@@ -503,11 +724,11 @@ def phase_step(corpus: pathlib.Path, main_run: dict) -> None:
         merge(state, update)
 
     ms = time_ms(step, warmup=3, reps=5, groups=3)
-    stream_s = main_run["phase_seconds"]["stream"]
-    emit({"phase": "step", "step_ms": ms, "chunk_bytes": cfg.chunk_bytes,
-          "merge_capacity": cfg.merge_capacity,
-          "host_ms_per_chunk": stream_s / main_run["chunks"] * 1e3,
-          "device_busy_share_est": main_run["chunks"] * ms / 1e3 / stream_s})
+    stream_s = run["phase_seconds"]["stream"]
+    emit({"phase": name, "app": app.name, "combine_op": app.combine_op, "step_ms": ms,
+          "chunk_bytes": cfg.chunk_bytes, "merge_capacity": cfg.merge_capacity,
+          "host_ms_per_chunk": stream_s / run["chunks"] * 1e3,
+          "device_busy_share_est": run["chunks"] * ms / 1e3 / stream_s})
 
 
 def write_text_corpus(dirpath: pathlib.Path) -> list[bytes]:
@@ -529,25 +750,38 @@ def write_text_corpus(dirpath: pathlib.Path) -> list[bytes]:
     return blobs
 
 
-def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> None:
-    from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
+def _cli(work: pathlib.Path, tag: str, args: list) -> tuple[pathlib.Path, float, str]:
+    out = work / f"text-out-{tag}"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", *args,
+         "--output", str(out), "--work", str(work / f"text-work-{tag}"), "--reduce-n", "4"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+    )
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"cli run ({tag}) failed ({r.returncode}):\n{r.stderr[-3000:]}")
+    return out, wall, r.stdout.strip().splitlines()[0]
 
+
+def _lines(out: pathlib.Path) -> list[bytes]:
+    return sorted(line for path in sorted(out.glob("mr-*.txt"))
+                  for line in path.read_bytes().splitlines())
+
+
+def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> None:
+    import os
+
+    from mapreduce_rust_tpu_torch.core.normalize import normalize_unicode, reference_word_counts
+    from mapreduce_rust_tpu_torch.runtime.dictionary import extract_words
+
+    per_file = [{w.encode(): c for w, c in reference_word_counts(b).items()} for b in blobs]
     want: dict = {}
-    for blob in blobs:
-        for w, c in reference_word_counts(blob).items():
-            want[w.encode()] = want.get(w.encode(), 0) + c
+    for counts in per_file:
+        for w, c in counts.items():
+            want[w] = want.get(w, 0) + c
     for engine in ("device", "host"):
-        out = work / f"text-out-{engine}"
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--input", str(corpus),
-             "--output", str(out), "--work", str(work / f"text-work-{engine}"),
-             "--reduce-n", "4", "--map-engine", engine],
-            capture_output=True, text=True, timeout=600, cwd=ROOT,
-        )
-        wall = time.perf_counter() - t0
-        check(r.returncode == 0, f"cli run ({engine}) failed ({r.returncode}):\n"
-              f"{r.stderr[-3000:]}")
+        out, wall, summary = _cli(work, engine, ["--input", str(corpus),
+                                                 "--map-engine", engine])
         got: dict = {}
         for path in sorted(out.glob("mr-*.txt")):
             for line in path.read_bytes().splitlines():
@@ -556,9 +790,96 @@ def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> N
                 got[w] = int(v)
         check(got == want, f"cli output ({engine}) differs from reference_word_counts "
               f"({len(got)} vs {len(want)} words)")
-        emit({"phase": "cli", "map_engine": engine, "exact": True, "words": len(got),
-              "bytes": sum(len(b) for b in blobs), "wall_s": wall,
-              "summary": r.stdout.strip().splitlines()[0]})
+        emit({"phase": "cli", "app": "word_count", "map_engine": engine, "exact": True,
+              "words": len(got), "bytes": sum(len(b) for b in blobs), "wall_s": wall,
+              "summary": summary})
+
+    # grep on the device engine: the posting list of each query word.
+    query = ["w1", "w4999", "café", "don’t", "naïve", "nothere"]
+    out, wall, summary = _cli(work, "grep", ["--input", str(corpus), "--app", "grep",
+                                             "--query", ",".join(query)])
+    norm = [extract_words(normalize_unicode(q.encode()))[0] for q in query]
+    want_lines = sorted(b"%s %s" % (w, b",".join(b"%d" % d for d, c in enumerate(per_file)
+                                                   if w in c))
+                        for w in norm if any(w in c for c in per_file))
+    got_lines = _lines(out)
+    check(got_lines == want_lines, f"cli grep lines {got_lines} differ from {want_lines}")
+    emit({"phase": "cli", "app": "grep", "map_engine": "device", "exact": True,
+          "query": query, "output_lines": len(got_lines), "wall_s": wall, "summary": summary})
+
+    # join on the host engine: a = the first two files, b = the third.
+    sides = {"a": work / "text-a", "b": work / "text-b"}
+    files = sorted(corpus.glob("*.txt"))
+    for side, idx in (("a", (0, 1)), ("b", (2,))):
+        sides[side].mkdir()
+        for i in idx:
+            os.link(files[i], sides[side] / files[i].name)
+    out, wall, summary = _cli(work, "join", ["--app", "join", "--map-engine", "host",
+                                             "--input", f"a={sides['a']}", f"b={sides['b']}"])
+    want_lines = sorted(b"%s %d %d" % (w, a, b)
+                        for w in want for a in (0, 1) if w in per_file[a]
+                        for b in (0,) if w in per_file[2])
+    got_lines = _lines(out)
+    check(got_lines == want_lines, f"cli join: {len(got_lines)} lines, want {len(want_lines)}")
+    emit({"phase": "cli", "app": "join", "map_engine": "host", "exact": True,
+          "output_lines": len(got_lines), "wall_s": wall, "summary": summary})
+
+
+def phase_apps(work: pathlib.Path) -> list[dict]:
+    """The five other apps on the zipf-ii corpus (and sort on its own
+    48 MiB corpus), each held to its generator's truth."""
+    import os
+
+    from mapreduce_rust_tpu_torch.apps import get_app
+
+    ii_dir = work / "zipf-ii"
+    ii_dir.mkdir()
+    t0 = time.perf_counter()
+    presence, counts01 = write_ii_corpus(ii_dir)
+    emit({"phase": "corpus", "name": "zipf-ii-256M",
+          "bytes": sum(p.stat().st_size for p in ii_dir.iterdir()), "docs": II_DOCS,
+          "distinct_words": int(presence.any(axis=1).sum()),
+          "posting_pairs": int(presence.sum()), "seed": II_SEED,
+          "seconds": time.perf_counter() - t0})
+    docs = sorted(ii_dir.glob("doc-*.txt"))
+    subsets = {"left": docs[:4], "right": docs[4:], "top": docs[:2]}
+    for name, members in subsets.items():
+        (work / name).mkdir()
+        for path in members:
+            os.link(path, work / name / path.name)
+
+    runs = []
+    ii = drive_job("ii", work, ii_check(presence), app=get_app("inverted_index"),
+                   corpus=ii_dir)
+    check(ii["spilled_keys"] > 0, "ii: no posting pairs were evicted")
+    runs.append(ii)
+    phase_step("step-ii", docs[0], ii, get_app("inverted_index"))
+    runs.append(drive_job("ii-host", work, ii_check(presence), app=get_app("inverted_index"),
+                          corpus=ii_dir, map_engine="host", merge_capacity=1 << 18,
+                          host_window_bytes=16 << 20))
+    ranks = (0, 7, 1000, 100_000, 2_000_000)
+    absent = b"nothere"
+    runs.append(drive_job(
+        "grep", work, grep_check(presence[:, :4], ranks, absent),
+        app=get_app("grep", query=tuple("w%06x" % r for r in ranks) + (absent.decode(),)),
+        corpus=work / "left"))
+    runs.append(drive_job(
+        "join", work, join_check(presence, 4), app=get_app("join"), map_engine="host",
+        input_dirs=(("a", str(work / "left")), ("b", str(work / "right")))))
+    runs.append(drive_job("top_k", work, topk_check(counts01, 20), app=get_app("top_k", k=20),
+                          corpus=work / "top"))
+
+    sort_dir = work / "zipf-sort"
+    sort_dir.mkdir()
+    t0 = time.perf_counter()
+    truth = write_zipf_corpus(sort_dir, SORT_BYTES, 1)
+    emit({"phase": "corpus", "name": "zipf-sort-48M",
+          "bytes": sum(p.stat().st_size for p in sort_dir.iterdir()),
+          "tokens": int(truth.sum()), "seconds": time.perf_counter() - t0})
+    for name, engine in (("sort", "device"), ("sort-host", "host")):
+        runs.append(drive_job(name, work, sort_check(truth), app=get_app("sort"),
+                              corpus=sort_dir, map_engine=engine))
+    return runs
 
 
 def main() -> int:
@@ -598,15 +919,17 @@ def main() -> int:
         text.mkdir()
         blobs = write_text_corpus(text)
         phase_native(corpus, b"".join(blobs))
-        main_run = drive_job("main", corpus, work, truth)
-        phase_step(corpus, main_run)
-        evict = drive_job("evict", corpus, work, truth, merge_capacity=1 << 18)
+        main_run = drive_job("main", work, zipf_check(truth), corpus=corpus)
+        phase_step("step", corpus / "part-0.txt", main_run)
+        evict = drive_job("evict", work, zipf_check(truth), corpus=corpus,
+                          merge_capacity=1 << 18)
         check(evict["spilled_keys"] > 0, "evict: no keys were evicted")
-        drive_job("host", corpus, work, truth, map_engine="host")
-        host_evict = drive_job("host-evict", corpus, work, truth, map_engine="host",
-                               merge_capacity=1 << 18, dispatch_coalesce=False,
-                               dispatch_async=False)
+        drive_job("host", work, zipf_check(truth), corpus=corpus, map_engine="host")
+        host_evict = drive_job("host-evict", work, zipf_check(truth), corpus=corpus,
+                               map_engine="host", merge_capacity=1 << 18,
+                               dispatch_coalesce=False, dispatch_async=False)
         check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
+        app_runs = phase_apps(work)
         phase_cli(work, text, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -617,6 +940,9 @@ def main() -> int:
         row["launches"] = main_run["launches"][row["name"]]
     check(main_run["launches"]["tokenize_hash"] > 0,
           "the main path never launched tokenize_hash")
+    for run in app_runs:
+        check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
+              f"{run['phase']}: tokenize_hash launches {run['launches']}")
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

@@ -3,9 +3,13 @@
 fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
+        [--app {word_count,inverted_index,grep,join,top_k,sort}]
+        [--query w1,w2] [--k K] [--split-samples N]
+        [--merge-capacity N] [--partial-capacity N]
         [--map-engine host [--host-workers N] [--fold-shards S]
          [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
-    python -m mapreduce_rust_tpu_torch merge --output DIR
+    python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
+    python -m mapreduce_rust_tpu_torch merge --output DIR [--app top_k --k K]
 
 ``run`` needs a CUDA device unless ``--device cpu`` is given.
 """
@@ -20,22 +24,57 @@ import sys
 
 from mapreduce_rust_tpu_torch.config import DEVICES, Config
 
+#: The registry's names, kept here so that parsing imports no app module.
+_APP_NAMES = ("grep", "inverted_index", "join", "sort", "top_k", "word_count")
+
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--input", default="data", metavar="DIR",
-                   help="input corpus directory")
+    p.add_argument("--input", nargs="+", default=["data"], metavar="DIR",
+                   help="input corpus: one directory, or N named corpora as "
+                   "name=DIR pairs (e.g. --input a=left-dir b=right-dir; join "
+                   "needs exactly two; corpora are ordered by name)")
     p.add_argument("--pattern", default="*.txt")
     p.add_argument("--output", default="mr-out")
     p.add_argument("--work", default="mr-work")
-    p.add_argument("--app", default="word_count", choices=["word_count"])
+    p.add_argument("--app", default="word_count", choices=list(_APP_NAMES))
+    p.add_argument("--k", type=int, default=20, help="top_k selection size")
+    p.add_argument("--query", default="",
+                   help="grep: comma-separated words to search for")
+    p.add_argument("--split-samples", type=int, default=512,
+                   dest="split_samples", metavar="N",
+                   help="range apps (sort): tokens the seeded splitter "
+                   "pre-pass samples per input file (default 512)")
     p.add_argument("--reduce-n", type=int, default=4)
     p.add_argument("-v", "--verbose", action="store_true")
 
 
+def _usage_error(args, e: ValueError):
+    """A bad --input or --query is an argparse usage error (exit 2), not a
+    traceback from inside the job."""
+    parser = getattr(args, "_parser", None)
+    if parser is not None:
+        parser.error(str(e))
+    raise e
+
+
+def _parse_inputs(args) -> tuple:
+    """``--input`` → (input_dir, input_dirs)."""
+    from mapreduce_rust_tpu_torch.runtime.chunker import parse_input_spec
+
+    try:
+        return parse_input_spec(args.input)
+    except ValueError as e:
+        _usage_error(args, e)
+
+
 def _cfg(args) -> Config:
+    input_dir, input_dirs = _parse_inputs(args)
     return Config(
         reduce_n=args.reduce_n,
+        split_samples=args.split_samples,
         chunk_bytes=int(args.chunk_mb * (1 << 20)),
+        merge_capacity=args.merge_capacity,
+        partial_capacity=args.partial_capacity,
         device=args.device,
         map_engine=args.map_engine,
         host_map_workers=args.host_workers,
@@ -43,7 +82,8 @@ def _cfg(args) -> Config:
         dispatch_async=not args.sync_dispatch,
         dispatch_coalesce=not args.no_dispatch_coalesce,
         dispatch_fill_frac=args.dispatch_fill,
-        input_dir=args.input,
+        input_dir=input_dir,
+        input_dirs=input_dirs,
         input_pattern=args.pattern,
         work_dir=args.work,
         output_dir=args.output,
@@ -53,19 +93,33 @@ def _cfg(args) -> Config:
 def _app(args):
     from mapreduce_rust_tpu_torch.apps import get_app
 
+    if args.app == "top_k":
+        return get_app(args.app, k=args.k)
+    if args.app == "grep":
+        from mapreduce_rust_tpu_torch.apps.grep import _query_keys
+
+        query = tuple(w for w in args.query.split(",") if w)
+        try:
+            _query_keys(query)  # validate at parse time
+        except ValueError as e:
+            _usage_error(args, e)
+        return get_app(args.app, query=query)
     return get_app(args.app)
 
 
 def cmd_run(args) -> int:
     from mapreduce_rust_tpu_torch.runtime.driver import run_job
 
-    res = run_job(_cfg(args), app=_app(args))
+    cfg = _cfg(args)
+    res = run_job(cfg, app=_app(args))
     print(res.stats.summary())
     print(f"outputs: {', '.join(res.output_files)}")
     return 0
 
 
 def cmd_merge(args) -> int:
+    """``cat mr-* | sort > final.txt`` through ``app.merge_lines``, which
+    selects across partitions for top_k."""
     app = _app(args)
     lines: list[bytes] = []
     files = sorted(glob.glob(os.path.join(args.output, "mr-*.txt")))
@@ -87,6 +141,14 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("run", help="single-process end-to-end job (CUDA path)")
     _add_common(p)
     p.add_argument("--chunk-mb", type=float, default=4.0)
+    p.add_argument("--merge-capacity", type=int, default=Config.merge_capacity,
+                   dest="merge_capacity", metavar="N",
+                   help="distinct records the device state holds before it "
+                   "evicts to the host (default 2^21); outputs identical")
+    p.add_argument("--partial-capacity", type=int, default=None,
+                   dest="partial_capacity", metavar="N",
+                   help="per-chunk distinct keys before a chunk replays "
+                   "full-width (default chunk bytes / 8); outputs identical")
     p.add_argument("--device", default="cuda", choices=list(DEVICES))
     p.add_argument("--map-engine", default="device", choices=["device", "host"],
                    dest="map_engine",
@@ -115,6 +177,7 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(fn=cmd_merge)
 
     args = parser.parse_args(argv)
+    args._parser = parser
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

@@ -14,8 +14,9 @@ driver is parameterized by, split along the device/host seam —
   given their occurrence counts.
 - **finalize** and the other host methods — egress: turn the final
   (word, value) table into ``mr-{r}.txt`` lines, partitioned by
-  ``k1 % reduce_n`` like the reference's split. They are copied from the
-  reference package unchanged, so the two write the same bytes.
+  ``k1 % reduce_n`` like the reference's split (hash mode) or by sampled
+  splitters (range mode, sort). They are copied from the reference
+  package unchanged, so the two write the same bytes.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from typing import Iterable
 
 from mapreduce_rust_tpu_torch.core.kv import KVBatch
 
-#: finalize receives, per key, the int value of a scalar op.
-FinalValue = "int"
+#: finalize receives, per key: int value for scalar ops ("sum"/"max"/"min"),
+#: or a sorted list[int] of distinct values for "distinct".
+FinalValue = "int | list[int]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +37,35 @@ class App:
 
     name: str = "app"
     combine_op: str = "sum"
+    #: Range apps (sort): R-1 packed-uint64 splitters, bound by the
+    #: sampled-splitter subsystem (runtime/splitter.prepare_app) before the
+    #: job streams. () = unbound.
+    splitters: tuple = ()
+    #: Multi-corpus apps (join): cumulative doc counts of corpora[:-1] in
+    #: the flat doc_id space, bound by prepare_app. A record's corpus is
+    #: bisect(corpus_bounds, doc_id). () = single corpus.
+    corpus_bounds: tuple = ()
+
+    #: "hash" routes egress by k1 % reduce_n; "range" routes by
+    #: searchsorted over the bound splitters, so partition order is key
+    #: order (ops/partition.py). A class attribute, not a field: the mode is
+    #: the app's shape, not per-job state.
+    partition_mode = "hash"
+    #: Non-zero: prepare_app requires exactly this many input corpora (join:
+    #: 2) at bind time, before anything streams. A class attribute too.
+    requires_corpora = 0
 
     def device_map(self, kv: KVBatch, doc_id: int) -> KVBatch:
-        """On-device per-chunk transform; doc_id is the input file index."""
+        """On-device per-chunk transform; doc_id is the chunk's index in the
+        job's flat input listing (every corpus's files, concatenated)."""
         return kv
+
+    @property
+    def device_select_k(self) -> "int | None":
+        """Non-None: a mesh driver may finish the job from per-device top-k
+        candidates (the reference's parallel/topk.py). Nothing in this
+        package reads it yet; it is kept so the apps copy unchanged."""
+        return None
 
     def host_mask(self, keys) -> "object | None":
         """Host-map-engine twin of a FILTERING device_map: given the

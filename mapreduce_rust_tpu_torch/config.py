@@ -1,7 +1,7 @@
 """Single config object for the PyTorch/CUDA port.
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
-single-device word_count engines read (device engine and host-map engine),
+single-device engines read (device engine and host-map engine, every app),
 with the reference's names and defaults — except ``device``, which
 defaults to ``"cuda"``: the port's entry points run on the card and raise
 without one, unless the caller asks for the CPU with ``device="cpu"``.
@@ -49,7 +49,6 @@ NOT_PORTED = {
     "profile_dir": None,               # device profiler trace
     "profile": False,                  # sampling profiler
     "lineage": False,                  # provenance ledger
-    "input_dirs": None,                # multi-corpus input
 }
 
 DEVICES = ("auto", "cuda", "cpu")
@@ -92,6 +91,11 @@ class Config:
     dispatch_stage_cap: Optional[int] = None  # staging records; None =
                                     # 64 × host_update_cap
 
+    # ---- Workload plane ----
+    split_samples: int = 512        # range apps (sort): tokens the seeded
+                                    # splitter pre-pass samples per input
+                                    # file (runtime/splitter.py)
+
     # ---- Not ported (see NOT_PORTED) ----
     mesh_shape: Optional[int] = None
     sharded_stream: bool = False
@@ -108,7 +112,12 @@ class Config:
     # ---- Paths ----
     input_dir: str = "data"
     input_pattern: str = "*.txt"
-    input_dirs: "Optional[tuple]" = None
+    input_dirs: "Optional[tuple]" = None  # multi-corpus input: ordered
+                                    # ((name, dir), ...) pairs, the CLI's
+                                    # --input a=DIR b=DIR, sorted by name.
+                                    # When set it supersedes input_dir and
+                                    # doc ids run over the concatenated
+                                    # listings (chunker.resolve_corpora)
     work_dir: str = "mr-work"        # intermediates
     output_dir: str = "mr-out"       # final per-partition outputs
 
@@ -139,9 +148,30 @@ class Config:
             raise ValueError("dispatch_stage_cap must be >= 1 (or None)")
         if self.host_window_bytes < 1 or self.host_update_cap < 1:
             raise ValueError("host_window_bytes and host_update_cap must be >= 1")
+        if self.split_samples < 1:
+            raise ValueError("split_samples must be >= 1")
+        if self.input_dirs is not None:
+            # Canonical, validated form (reference config.py:526-542): a
+            # non-empty tuple of (name, dir) string pairs with unique
+            # non-empty names.
+            dirs = tuple(tuple(p) for p in self.input_dirs)
+            if not dirs or not all(
+                len(p) == 2 and all(isinstance(x, str) and x for x in p)
+                for p in dirs
+            ):
+                raise ValueError(
+                    "input_dirs must be ((name, dir), ...) string pairs"
+                )
+            names = [n for n, _ in dirs]
+            if len(set(names)) != len(names):
+                raise ValueError(f"duplicate corpus names in {names}")
+            self.input_dirs = dirs
 
     def corpora(self) -> "tuple[tuple[str, str], ...]":
-        """The job's (name, dir) corpus list: one corpus in this slice."""
+        """The job's ordered (name, dir) corpus list, multi-corpus or
+        classic — the one accessor inputs resolve through."""
+        if self.input_dirs is not None:
+            return tuple(self.input_dirs)
         return (("corpus", self.input_dir),)
 
     def effective_partial_capacity(self) -> int:

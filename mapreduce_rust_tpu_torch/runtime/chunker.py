@@ -1,7 +1,6 @@
 """Host-side ingest: files → fixed-shape, whitespace-aligned byte chunks.
 
-The port's copy of ``mapreduce_rust_tpu/runtime/chunker.py`` (single
-corpus). Each file is normalized (core/normalize.py) and streamed as
+The port's copy of ``mapreduce_rust_tpu/runtime/chunker.py``. Each file is normalized (core/normalize.py) and streamed as
 uint8 chunks of exactly ``chunk_bytes``, space-padded, cut at whitespace
 so no token straddles a chunk edge and per-chunk counts sum exactly to
 whole-corpus counts. A token longer than ``chunk_bytes`` is force-split
@@ -13,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -129,8 +128,51 @@ def list_inputs(input_dir: str, pattern: str = "*.txt") -> list[str]:
     return sorted(glob.glob(os.path.join(input_dir, pattern)))
 
 
+def parse_input_spec(values: Sequence[str]):
+    """The CLI's ``--input`` forms → (input_dir, input_dirs) (reference
+    ``chunker.py:201-236``):
+
+    - ``--input DIR`` — the classic single corpus: (DIR, None). ONE value
+      is always this form, '=' in the path included;
+    - ``--input a=DIR b=DIR`` — N (>= 2) named corpora, sorted by name
+      (``a=X b=Y`` and ``b=Y a=X`` are the same job): (first dir, sorted
+      ((name, dir), ...)).
+
+    Mixing the two forms, or repeating a name, is a usage error.
+    """
+    vals = list(values)
+    if len(vals) == 1:
+        return vals[0], None
+    pairs = []
+    for v in vals:
+        name, sep, d = v.partition("=")
+        if not sep or not name or not d:
+            raise ValueError(
+                f"multi-corpus --input wants name=DIR entries, got {v!r} "
+                "(single-corpus form takes exactly one bare DIR)"
+            )
+        pairs.append((name, d))
+    names = [n for n, _ in pairs]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate corpus names in --input: {names}")
+    pairs.sort()
+    return pairs[0][1], tuple(pairs)
+
+
 def resolve_corpora(cfg) -> tuple[list[str], tuple, tuple]:
-    """(inputs, corpus_bounds, names) of the job's single corpus; bounds are
-    () as for every single-corpus reference job."""
-    (name, d), = cfg.corpora()
-    return list_inputs(d, cfg.input_pattern), (), (name,)
+    """Flatten the job's corpora (Config.corpora()) into the doc_id space:
+    (inputs, corpus_bounds, names). ``inputs`` concatenates each corpus's
+    sorted listing in corpus order, so doc ids are global over every
+    corpus; ``corpus_bounds`` holds the cumulative doc counts of
+    corpora[:-1], which splitter.prepare_app binds onto multi-corpus apps.
+    A single corpus comes back with bounds == ()."""
+    corpora = cfg.corpora()
+    inputs: list[str] = []
+    bounds: list[int] = []
+    for _name, d in corpora:
+        inputs.extend(list_inputs(d, cfg.input_pattern))
+        bounds.append(len(inputs))
+    names = tuple(n for n, _ in corpora)
+    if len(corpora) == 1:
+        return inputs, (), names
+    return inputs, tuple(bounds[:-1]), names

@@ -67,7 +67,6 @@ from mapreduce_rust_tpu_torch.native.host import (
     scan_unique_raw,
 )
 from mapreduce_rust_tpu_torch.ops.groupby import (
-    REDUCE_OPS,
     clamp_batch,
     compact_front,
     compaction_cap,
@@ -87,6 +86,7 @@ from mapreduce_rust_tpu_torch.runtime.dictionary import (
     extract_words,
 )
 from mapreduce_rust_tpu_torch.runtime.metrics import JobStats, log
+from mapreduce_rust_tpu_torch.runtime.splitter import prepare_app
 
 
 def select_device(kind: str = "cuda") -> torch.device:
@@ -156,9 +156,20 @@ def _unpack_rows(packed: np.ndarray, vals: np.ndarray) -> np.ndarray:
 
 
 def _combine_rows(op: str, keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
-    """(keys [n,2], vals [n]) → sorted rows [m, 3] (k1, k2, value), one per
-    distinct key, values folded by ``op``."""
+    """(keys [n,2], vals [n]) → sorted rows [m, 3] (k1, k2, value): one per
+    distinct (key, value) pair for "distinct", else one per distinct key
+    with values folded by ``op`` (reference ``driver.py:348-373``)."""
     packed = _pack_key_cols(keys)
+    if op == "distinct":
+        # Sort by (key, value), then mask repeats.
+        order = np.lexsort((vals, packed))
+        p_s, v_s = packed[order], vals[order]
+        if len(p_s):
+            keep = np.empty(len(p_s), dtype=bool)
+            keep[0] = True
+            keep[1:] = (p_s[1:] != p_s[:-1]) | (v_s[1:] != v_s[:-1])
+            p_s, v_s = p_s[keep], v_s[keep]
+        return _unpack_rows(p_s, v_s)
     uniq, inv = np.unique(packed, return_inverse=True)
     inv = inv.reshape(-1)
     if op == "sum":
@@ -179,7 +190,10 @@ class HostAccumulator:
     Adds are O(1) array appends; the fold is deferred and vectorized
     (np.unique over the concatenated batches + ufunc.at). Keys arrive as
     uint32 views (KVBatch.to_host), so the int64 cast keeps them unsigned
-    and ``k1 % reduce_n`` routes them as the reference does.
+    and ``k1 % reduce_n`` routes them as the reference does. Under
+    "distinct" the table maps each key to the SET of its values: spills
+    and the final state are unioned, so a key that an eviction cut in two
+    comes back whole.
     """
 
     def __init__(self, op: str) -> None:
@@ -209,16 +223,22 @@ class HostAccumulator:
     def table(self) -> dict:
         if self._table is None:
             rows = self.fold_arrays()
-            self._table = dict(zip(
-                zip(rows[:, 0].tolist(), rows[:, 1].tolist()), rows[:, 2].tolist()
-            ))
+            if self.op == "distinct":
+                t: dict = collections.defaultdict(set)
+                for a, b, v in rows.tolist():
+                    t[(a, b)].add(v)
+                self._table = t
+            else:
+                self._table = dict(zip(
+                    zip(rows[:, 0].tolist(), rows[:, 1].tolist()), rows[:, 2].tolist()
+                ))
         return self._table
 
 
 @dataclasses.dataclass
 class JobResult:
     stats: JobStats
-    table: dict            # word bytes → final value
+    table: dict            # word bytes → final value (int or sorted doc list)
     output_files: list[str]
 
 
@@ -274,7 +294,8 @@ class _IngestStream:
     """Shared ingest: a prefetch thread runs read→normalize→chunk ahead of
     the consumer (bounded queue), and a thread pool runs the dictionary
     scans; scan results fold into the Dictionary only on the consumer
-    thread. doc_id = position in inputs."""
+    thread. doc_id = position in inputs (the flat listing of every
+    corpus)."""
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
                  dictionary: Dictionary, host_mask) -> None:
@@ -1209,21 +1230,31 @@ def run_job(
     inputs: Sequence[str] | None = None,
     app: App | None = None,
     write_outputs: bool = True,
+    corpus_bounds: Sequence[int] | None = None,
 ) -> JobResult:
-    """Run one job end-to-end on ``cfg.device``; exact results."""
+    """Run one job end-to-end on ``cfg.device``; exact results.
+
+    With ``inputs=None`` the corpora come from ``Config.corpora()``
+    (``input_dirs``) and the flat doc_id space concatenates their sorted
+    listings; a caller that passes ``inputs`` passes the matching
+    ``corpus_bounds`` (resolve_corpora's) too."""
     t0 = time.perf_counter()
     device = select_device(cfg.device)
     app = app or WordCount()
-    if app.combine_op not in REDUCE_OPS:
-        raise NotImplementedError(f"combine_op {app.combine_op!r} is not ported")
     if inputs is None:
-        inputs, _bounds, _names = resolve_corpora(cfg)
+        inputs, auto_bounds, _names = resolve_corpora(cfg)
+        if corpus_bounds is None:
+            corpus_bounds = auto_bounds
     else:
         inputs = list(inputs)
     if not inputs:
         raise ValueError("no input files")
 
     stats = JobStats()
+    # Bind corpus bounds and, for range apps, sampled splitters onto the
+    # app before anything streams (reference driver.py:2916-2922): a join
+    # with one corpus fails here, and every engine routes identically.
+    app = prepare_app(app, cfg, inputs, corpus_bounds or (), stats=stats)
     acc = HostAccumulator(app.combine_op)
     # The host-map engine splits the dictionary into key-hash-disjoint
     # shards, one per fold thread; the device engine folds on its consumer.
@@ -1246,13 +1277,15 @@ def run_job(
         stats.dictionary_words = len(dictionary)
         stats.hash_collisions = len(dictionary.collisions)
         items = []
+        is_distinct = app.combine_op == "distinct"
         for key, v in acc.table.items():
             word = dictionary.lookup(*key)
             if word is None:
                 stats.unknown_keys += 1
                 continue
-            items.append((word, v, key))
-            table[word] = v
+            value = sorted(v) if is_distinct else v
+            items.append((word, value, key))
+            table[word] = value
 
     with stats.phase("egress"):
         parts = app.finalize(items, cfg.reduce_n)
@@ -1260,9 +1293,13 @@ def run_job(
             os.makedirs(cfg.output_dir, exist_ok=True)
             for r in range(cfg.reduce_n):
                 path = os.path.join(cfg.output_dir, f"mr-{r}.txt")
+                written = 0
                 with open(path, "wb") as f:
                     for line in parts.get(r, []):
                         f.write(line + b"\n")
+                        written += len(line) + 1
+                # Per-partition output bytes: the reduce-side skew signal.
+                stats.partition_bytes.append(written)
                 output_files.append(path)
 
     stats.wall_seconds = time.perf_counter() - t0

@@ -1,7 +1,7 @@
 """Job metrics & phase timing — per phase, never per record.
 
 The port of ``mapreduce_rust_tpu/runtime/metrics.py::JobStats`` for the
-counters the single-device engines (device and host-map) fill, under the
+counters the single-device engines (device and host-map) and egress fill, under the
 reference's names, so a port run and a reference run compare field by
 field. The live metrics
 registry, histograms and tracing come with a later slice.
@@ -51,6 +51,15 @@ class JobStats:
                                   # its consumer; host engine: summed over shards)
     fold_stall_s: float = 0.0     # router blocked on full shard queues
     host_arena_bytes: int = 0     # live native scan arenas at stream end
+    # Egress and the workload plane.
+    partition_bytes: list = dataclasses.field(default_factory=list)
+    # bytes of formatted output per reduce partition (index = r): the
+    # reduce-side skew signal
+    partition_mode: str = "hash"  # "hash" (k1 % reduce_n) or "range"
+    # (searchsorted over sampled splitters — sort)
+    splitter_samples: int = 0     # tokens the splitter pre-pass drew
+    # across all inputs (range apps only; 0 = no pre-pass ran)
+    splitter_s: float = 0.0       # wall seconds of the sample+derive pre-pass
 
     @property
     def gb_per_s(self) -> float:

@@ -180,13 +180,31 @@ def test_chunk_stream_matches_reference(corpus, window):
 
 _GATE = """
 import sys
+import mapreduce_rust_tpu_torch.__main__
+import mapreduce_rust_tpu_torch.apps.grep
+import mapreduce_rust_tpu_torch.apps.inverted_index
+import mapreduce_rust_tpu_torch.apps.join
+import mapreduce_rust_tpu_torch.apps.sort
+import mapreduce_rust_tpu_torch.apps.top_k
+import mapreduce_rust_tpu_torch.ops.partition
+import mapreduce_rust_tpu_torch.runtime.splitter
+from mapreduce_rust_tpu_torch.apps import get_app
 from mapreduce_rust_tpu_torch.config import Config
 from mapreduce_rust_tpu_torch.runtime.driver import run_job
 for engine in ("device", "host"):
     res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
                          output_dir=sys.argv[2], work_dir=sys.argv[2],
                          map_engine=engine, fold_shards=2))
-    assert res.table == {b"hello": 2, b"world": 1, "café".encode(): 1}, res.table
+    assert res.table == {b"hello": 3, b"world": 1, "café".encode(): 1}, res.table
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2], work_dir=sys.argv[2],
+                         map_engine=engine), app=get_app("inverted_index"))
+    assert res.table == {b"hello": [0, 1], b"world": [0], "café".encode(): [0]}, res.table
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2], work_dir=sys.argv[2], reduce_n=2,
+                         map_engine=engine), app=get_app("sort"))
+    lines = b"".join(open(p, "rb").read() for p in res.output_files).split()
+    assert lines == sorted([b"hello"] * 3 + [b"world", "café".encode()]), lines
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
@@ -197,6 +215,7 @@ sys.exit(3 if bad else 0)
 def test_port_is_jax_free(tmp_path):
     (tmp_path / "in").mkdir()
     (tmp_path / "in" / "a.txt").write_bytes("hello world hello café\n".encode())
+    (tmp_path / "in" / "b.txt").write_bytes(b"hello\n")
     r = subprocess.run(
         [sys.executable, "-c", _GATE, str(tmp_path / "in"), str(tmp_path / "out")],
         capture_output=True, text=True, timeout=120, cwd=REPO,
@@ -206,14 +225,20 @@ def test_port_is_jax_free(tmp_path):
     assert "LOADED []" in r.stdout
 
 
-def test_no_cpu_fallback(tmp_path, monkeypatch):
+@pytest.mark.parametrize(
+    "app", ["word_count", "inverted_index", "grep", "join", "top_k", "sort"])
+def test_no_cpu_fallback(tmp_path, monkeypatch, app):
+    from mapreduce_rust_tpu_torch.apps import get_app
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "a.txt").write_bytes(b"hello\n")
+    kw = {"grep": {"query": ("hello",)}}.get(app, {})
+    dirs = (("a", str(tmp_path)), ("b", str(tmp_path))) if app == "join" else None
     for device in ("cuda", "auto"):
-        cfg = Config(device=device, input_dir=str(tmp_path),
+        cfg = Config(device=device, input_dir=str(tmp_path), input_dirs=dirs,
                      output_dir=str(tmp_path / "out"))
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            run_job(cfg)
+            run_job(cfg, app=get_app(app, **kw))
     assert not (tmp_path / "out").exists()
     assert Config().device == "cuda"
 
@@ -237,7 +262,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
 
 @pytest.mark.parametrize("field", sorted(NOT_PORTED))
 def test_config_rejects_unported_fields(field):
-    value = {"mesh_shape": 2, "input_dirs": (("a", "x"),)}.get(
+    value = {"mesh_shape": 2}.get(
         field, 1 if NOT_PORTED[field] in (None, 0, False) else None)
     with pytest.raises(NotImplementedError, match=field):
         Config(**{field: value})
