@@ -62,18 +62,38 @@ one JSON line; any failure raises and ends the run:
               engine: mr-{r}.txt concatenated in partition order is in
               order and holds exactly the generator's counts; partition
               skew and the splitter pre-pass reported;
-11. cli     — a few-MB unicode/punctuation corpus through
+11. spill tiers — the bounded-memory tiers and the streaming merge-join
+              egress, each exact against its generator's truth:
+   spill      — zipf-256M word_count on the device engine, merge_capacity
+              2^18, host_accum_budget_mb 16, dictionary_budget_words 2^19:
+              both tiers write runs;
+   spill-host — the same corpus under the reference bench's ``_zipf_cfg``
+              field for field (host engine, 1 MiB chunks, 16 MiB windows,
+              2^18 state, fill 0.5, coalescing, 256 MiB and 2^19 words):
+              the dictionary tier writes runs;
+   spill-ii   — inverted_index on zipf-ii-256M, device engine, 16 MiB and
+              2^19 words: accumulator runs of ``distinct`` rows;
+   spill-sort — sort on zipf-sort-48M under ``_zipf_cfg`` with the inline
+              (sync) spill writer;
+   spill-topk — top_k on documents 0-1 with a 2^17-word dictionary
+              budget, through the rehydrate path (top_k overrides
+              finalize);
+12. cli     — a few-MB unicode/punctuation corpus through
               ``python -m mapreduce_rust_tpu_torch run``, once per engine,
               checked against the port's reference_word_counts; then
               ``--app grep --query ...`` and ``--app join --input a=DIR
               b=DIR`` on it, against oracles from reference_word_counts
-              per file.
+              per file; then a budgeted run (``--accum-budget-mb 0
+              --dict-budget-words 4096``) and ``clean``.
 
 Every job phase checks unknown_keys == 0 and hash_collisions == 0 and
-prints its wall, phase seconds, device_wait_s, spills and tokenize_hash
-launches (above 0 on the device engine, 0 on the host engine).
+that no spill run file is left in its work dir, and prints its wall,
+phase seconds, device_wait_s, spills, the spill tiers' runs, seconds and
+bytes, and tokenize_hash launches (at least the chunk count on the device
+engine, 0 on the host engine).
 
-Then the card's nvidia-smi line, the ``{"kernels": [...]}`` line, and last
+Then the tokenize_hash launches of every driven phase, the card's
+nvidia-smi line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Kernel launch counts are reset just
 before each driven phase and read just after it; launches made to compare
 a kernel with its plain version are not counted.
@@ -83,6 +103,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -113,6 +134,15 @@ II_BYTES = 256 << 20
 II_DOCS = 8
 #: The sort corpus: the reference bench's sort leg size (bench.py:517).
 SORT_BYTES = 48 << 20
+#: The reference bench's budgets-engaged config ``_zipf_cfg``
+#: (bench.py:159-172), field for field; reduce_n and paths are the phase's.
+ZIPF_CFG = dict(map_engine="host", host_window_bytes=16 << 20, chunk_bytes=1 << 20,
+                merge_capacity=1 << 18, host_accum_budget_mb=256,
+                dictionary_budget_words=1 << 19, dispatch_fill_frac=0.5,
+                dispatch_coalesce=True)
+#: The fields of JobStats that the spill tiers fill.
+SPILL_FIELDS = ("accum_spill_runs", "dict_spill_runs", "spill_s", "spill_stall_s",
+                "spill_bytes", "merge_fanin")
 #: Host time per 4 MiB chunk of the main path before the native scan, ms
 #: (PERF.md §5: chip_smoke.py main phase, NVIDIA H100 80GB HBM3, 700 W).
 HOST_MS_PER_CHUNK_PYTHON_SCAN = (672, 1539)
@@ -528,6 +558,8 @@ def drive_job(name: str, work: pathlib.Path, check_outputs, app=None,
     s = res.stats
     check(s.unknown_keys == 0, f"{name}: {s.unknown_keys} unknown keys")
     check(s.hash_collisions == 0, f"{name}: {s.hash_collisions} hash collisions")
+    left = [p.name for p in pathlib.Path(cfg.work_dir).glob("*run-*")]
+    check(not left, f"{name}: spill run files left in the work dir: {left[:4]}")
     t0 = time.perf_counter()
     fields = check_outputs(res)
     stream_s = s.phase_seconds["stream"]
@@ -539,9 +571,13 @@ def drive_job(name: str, work: pathlib.Path, check_outputs, app=None,
            **fields, "check_s": time.perf_counter() - t0,
            "spilled_keys": s.spilled_keys, "spill_events": s.spill_events,
            "partial_overflow_replays": s.partial_overflow_replays,
+           **{k: getattr(s, k) for k in SPILL_FIELDS},
            "phase_seconds": s.phase_seconds,
            "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
-           "merge_capacity": cfg.merge_capacity}
+           "merge_capacity": cfg.merge_capacity,
+           "host_accum_budget_mb": cfg.host_accum_budget_mb,
+           "dictionary_budget_words": cfg.dictionary_budget_words,
+           "spill_async": cfg.spill_async}
     if cfg.map_engine == "device":
         check(launches["tokenize_hash"] >= s.chunks > 0, f"{name}: tokenize_hash launched "
               f"{launches['tokenize_hash']} times for {s.chunks} chunks")
@@ -824,10 +860,31 @@ def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> N
     emit({"phase": "cli", "app": "join", "map_engine": "host", "exact": True,
           "output_lines": len(got_lines), "wall_s": wall, "summary": summary})
 
+    # Both spill tiers on the device engine, then ``clean``.
+    out, wall, summary = _cli(work, "spill", ["--input", str(corpus), "--accum-budget-mb", "0",
+                                              "--dict-budget-words", "4096"])
+    got = dict(line.rsplit(b" ", 1) for line in _lines(out))
+    check({w: int(v) for w, v in got.items()} == want and len(got) == len(_lines(out)),
+          "cli budgeted run differs from reference_word_counts")
+    tiers = re.search(r"spill\[runs acc=(\d+) dict=(\d+)", summary)
+    check(tiers is not None and min(int(tiers[1]), int(tiers[2])) > 0,
+          f"cli budgeted run: a tier wrote no run: {summary}")
+    r = subprocess.run(
+        [sys.executable, "-m", "mapreduce_rust_tpu_torch", "clean", "--output", str(out),
+         "--work", str(work / "text-work-spill")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    check(r.returncode == 0 and not list(out.glob("mr-*.txt"))
+          and not list((work / "text-work-spill").glob("*run-*")),
+          f"cli clean failed ({r.returncode}): {r.stdout} {r.stderr[-2000:]}")
+    emit({"phase": "cli", "app": "word_count", "map_engine": "device", "exact": True,
+          "budgets": {"accum_mb": 0, "dict_words": 4096}, "words": len(got), "wall_s": wall,
+          "summary": summary, "clean": r.stdout.strip()})
 
-def phase_apps(work: pathlib.Path) -> list[dict]:
+
+def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     """The five other apps on the zipf-ii corpus (and sort on its own
-    48 MiB corpus), each held to its generator's truth."""
+    48 MiB corpus), each held to its generator's truth. Returns the runs
+    and the corpora with their truths, for the spill phases."""
     import os
 
     from mapreduce_rust_tpu_torch.apps import get_app
@@ -879,6 +936,43 @@ def phase_apps(work: pathlib.Path) -> list[dict]:
     for name, engine in (("sort", "device"), ("sort-host", "host")):
         runs.append(drive_job(name, work, sort_check(truth), app=get_app("sort"),
                               corpus=sort_dir, map_engine=engine))
+    return runs, {"ii_dir": ii_dir, "presence": presence, "counts01": counts01,
+                  "top_dir": work / "top", "sort_dir": sort_dir, "sort_truth": truth}
+
+
+def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
+    """The spill tiers and the streaming egress on the corpora of the
+    earlier phases, each exact against its generator's truth."""
+    from mapreduce_rust_tpu_torch.apps import get_app
+
+    runs = []
+    run = drive_job("spill", work, zipf_check(truth), corpus=corpus,
+                    merge_capacity=1 << 18, host_accum_budget_mb=16,
+                    dictionary_budget_words=1 << 19)
+    check(run["accum_spill_runs"] > 0 and run["dict_spill_runs"] > 0,
+          f"spill: a tier wrote no run ({run['accum_spill_runs']} accumulator, "
+          f"{run['dict_spill_runs']} dictionary)")
+    runs.append(run)
+    run = drive_job("spill-host", work, zipf_check(truth), corpus=corpus, **ZIPF_CFG)
+    check(run["dict_spill_runs"] > 0, "spill-host: the dictionary wrote no run")
+    runs.append(run)
+    run = drive_job("spill-ii", work, ii_check(ctx["presence"]),
+                    app=get_app("inverted_index"), corpus=ctx["ii_dir"],
+                    host_accum_budget_mb=16, dictionary_budget_words=1 << 19)
+    check(run["accum_spill_runs"] > 0 and run["dict_spill_runs"] > 0,
+          f"spill-ii: a tier wrote no run ({run['accum_spill_runs']} accumulator, "
+          f"{run['dict_spill_runs']} dictionary)")
+    runs.append(run)
+    run = drive_job("spill-sort", work, sort_check(ctx["sort_truth"]), app=get_app("sort"),
+                    corpus=ctx["sort_dir"], **{**ZIPF_CFG, "spill_async": False})
+    check(run["dict_spill_runs"] > 0, "spill-sort: the dictionary wrote no run")
+    runs.append(run)
+    run = drive_job("spill-topk", work, topk_check(ctx["counts01"], 20),
+                    app=get_app("top_k", k=20), corpus=ctx["top_dir"],
+                    dictionary_budget_words=1 << 17)
+    check(run["dict_spill_runs"] > 0 and run["merge_fanin"] == 0,
+          "spill-topk: the dictionary wrote no run, or the streaming egress ran")
+    runs.append(run)
     return runs
 
 
@@ -929,7 +1023,8 @@ def main() -> int:
                                map_engine="host", merge_capacity=1 << 18,
                                dispatch_coalesce=False, dispatch_async=False)
         check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
-        app_runs = phase_apps(work)
+        app_runs, ctx = phase_apps(work)
+        spill_runs = phase_spill(work, corpus, truth, ctx)
         phase_cli(work, text, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -940,9 +1035,14 @@ def main() -> int:
         row["launches"] = main_run["launches"][row["name"]]
     check(main_run["launches"]["tokenize_hash"] > 0,
           "the main path never launched tokenize_hash")
-    for run in app_runs:
+    runs = [main_run, evict, *app_runs, *spill_runs]
+    for run in app_runs + spill_runs:
         check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
               f"{run['phase']}: tokenize_hash launches {run['launches']}")
+    emit({"phase": "launches", "tokenize_hash": {
+        run["phase"]: run["launches"]["tokenize_hash"] for run in runs
+        if run["map_engine"] == "device"}, "chunks": {
+        run["phase"]: run["chunks"] for run in runs if run["map_engine"] == "device"}})
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

@@ -1,6 +1,6 @@
-"""CLI entry points of the port — the ``run`` and ``merge`` subcommands of
-``python -m mapreduce_rust_tpu``, with the reference's flags for the
-fields this package implements:
+"""CLI entry points of the port — the ``run``, ``merge`` and ``clean``
+subcommands of ``python -m mapreduce_rust_tpu``, with the reference's
+flags for the fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
         [--app {word_count,inverted_index,grep,join,top_k,sort}]
@@ -8,8 +8,10 @@ fields this package implements:
         [--merge-capacity N] [--partial-capacity N]
         [--map-engine host [--host-workers N] [--fold-shards S]
          [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
+        [--accum-budget-mb MB] [--dict-budget-words N] [--sync-spill]
     python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
     python -m mapreduce_rust_tpu_torch merge --output DIR [--app top_k --k K]
+    python -m mapreduce_rust_tpu_torch clean --work DIR --output DIR
 
 ``run`` needs a CUDA device unless ``--device cpu`` is given.
 """
@@ -82,6 +84,9 @@ def _cfg(args) -> Config:
         dispatch_async=not args.sync_dispatch,
         dispatch_coalesce=not args.no_dispatch_coalesce,
         dispatch_fill_frac=args.dispatch_fill,
+        host_accum_budget_mb=args.accum_budget_mb,
+        dictionary_budget_words=args.dict_budget_words,
+        spill_async=not args.sync_spill,
         input_dir=input_dir,
         input_dirs=input_dirs,
         input_pattern=args.pattern,
@@ -134,6 +139,28 @@ def cmd_merge(args) -> int:
     return 0
 
 
+def cmd_clean(args) -> int:
+    """Remove a job's intermediates and outputs (reference src/clean.sh):
+    spill runs (``accrun-*``, ``dictrun-*``, and what the reference's
+    other engines leave in a work dir) and ``mr-*.txt`` / ``final.txt``."""
+    removed = 0
+    journal = os.path.join(args.work, "coordinator.journal")
+    if os.path.exists(journal):
+        os.remove(journal)
+        removed += 1
+    for pattern in ("mr-*.npz", "dict-*", "driver.ckpt*", "accrun-*",
+                    "dictrun-*", "job_report.json"):
+        for p in glob.glob(os.path.join(args.work, pattern)):
+            os.remove(p)
+            removed += 1
+    for pattern in ("mr-*.txt", "final.txt"):
+        for p in glob.glob(os.path.join(args.output, pattern)):
+            os.remove(p)
+            removed += 1
+    print(f"removed {removed} files")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="mapreduce_rust_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -170,11 +197,27 @@ def main(argv: list[str] | None = None) -> int:
                    default=0.5, dest="dispatch_fill",
                    help="host engine: staging fill fraction that triggers a "
                    "coalesced merge (default 0.5)")
+    p.add_argument("--accum-budget-mb", type=int, default=None,
+                   dest="accum_budget_mb",
+                   help="host accumulator RAM budget (MiB); above it, sorted "
+                   "runs go to --work and finalize streams (exact)")
+    p.add_argument("--dict-budget-words", type=int, default=None,
+                   dest="dict_budget_words",
+                   help="egress dictionary RAM budget (words); above it, "
+                   "sorted runs go to --work and finalize streams")
+    p.add_argument("--sync-spill", action="store_true", dest="sync_spill",
+                   help="write spill runs inline on their owner thread instead "
+                   "of the background writer (outputs identical; "
+                   "MR_SPILL_SYNC=1 does the same)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("merge", help="mr-*.txt → final.txt")
     _add_common(p)
     p.set_defaults(fn=cmd_merge)
+
+    p = sub.add_parser("clean", help="remove intermediates and outputs")
+    _add_common(p)
+    p.set_defaults(fn=cmd_clean)
 
     args = parser.parse_args(argv)
     args._parser = parser

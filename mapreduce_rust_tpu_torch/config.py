@@ -40,8 +40,6 @@ def _usable_cores() -> int:
 NOT_PORTED = {
     "mesh_shape": None,                # multi-device mesh
     "sharded_stream": False,           # halo-exchange ingestion
-    "host_accum_budget_mb": None,      # accumulator spill tier
-    "dictionary_budget_words": None,   # dictionary spill tier
     "checkpoint_every_groups": 0,      # mesh checkpoint
     "resume": False,
     "trace_path": None,                # Chrome trace
@@ -91,6 +89,25 @@ class Config:
     dispatch_stage_cap: Optional[int] = None  # staging records; None =
                                     # 64 × host_update_cap
 
+    # ---- Spill tiers (runtime/spill.py) ----
+    host_accum_budget_mb: Optional[int] = None  # set: the host
+                                    # accumulator spills sorted runs
+                                    # (accrun-*.npy) to work_dir whenever its
+                                    # pending rows pass this many MiB, and
+                                    # the job ends through the streaming
+                                    # merge-join egress (outputs identical)
+    dictionary_budget_words: Optional[int] = None  # set: the egress
+                                    # dictionary spills sorted word runs
+                                    # (dictrun-*.bin) at this many words in
+                                    # RAM (split across fold shards)
+    spill_async: bool = True        # budget flushes freeze a snapshot that a
+                                    # background writer per tier (each
+                                    # dictionary shard, the accumulator)
+                                    # sorts, packs and writes while the
+                                    # owner keeps going; False (or
+                                    # MR_SPILL_SYNC=1) writes inline.
+                                    # Outputs are identical either way
+
     # ---- Workload plane ----
     split_samples: int = 512        # range apps (sort): tokens the seeded
                                     # splitter pre-pass samples per input
@@ -99,8 +116,6 @@ class Config:
     # ---- Not ported (see NOT_PORTED) ----
     mesh_shape: Optional[int] = None
     sharded_stream: bool = False
-    host_accum_budget_mb: Optional[int] = None
-    dictionary_budget_words: Optional[int] = None
     checkpoint_every_groups: int = 0
     resume: bool = False
     trace_path: Optional[str] = None
@@ -188,14 +203,19 @@ class Config:
 
     def effective_fold_shards(self) -> int:
         """Resolved egress-fold shard count of the host-map engine: the
-        explicit knob, or min(4, cores // 2) at >= 4 usable cores, else 1
-        (the inline fold on the router). The reference also picks 2 below
-        4 cores when a dictionary budget is set; that branch comes with
-        the dictionary spill tier (``dictionary_budget_words``)."""
+        explicit knob, or min(4, cores // 2) at >= 4 usable cores. Below 4
+        cores: 2 when the dispatch plane is async and a dictionary budget
+        declares a high-cardinality job (the off-router fold pays there),
+        else 1 (the inline fold on the router)."""
         if self.fold_shards:
             return max(int(self.fold_shards), 1)
         n = _usable_cores()
-        return 1 if n < 4 else min(4, n // 2)
+        if n < 4:
+            if (self.dispatch_async and not sync_dispatch_forced()
+                    and self.dictionary_budget_words is not None):
+                return 2
+            return 1
+        return min(4, n // 2)
 
     def effective_dispatch_stage_cap(self) -> int:
         """Resolved staging-combine capacity of the dispatch plane: the

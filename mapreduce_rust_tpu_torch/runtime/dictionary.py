@@ -1,7 +1,8 @@
-"""Host-side hash→word dictionary — the egress join table (RAM tier).
+"""Host-side hash→word dictionary — the egress join table.
 
-The port of ``mapreduce_rust_tpu/runtime/dictionary.py`` without its disk
-spill tier. The device computes on hash pairs only; to print words at
+The port of ``mapreduce_rust_tpu/runtime/dictionary.py`` (its RAM tier
+and its disk word tier; ``save``/``load``/``merge`` come with the worker
+slice). The device computes on hash pairs only; to print words at
 egress, every chunk's distinct words are hashed on the host during ingest
 with the same two polynomial lanes (core/hashing.py), so the
 ``hash pair → word`` join is exact. A new word landing on an existing
@@ -14,6 +15,12 @@ a sorted packed-key table answers membership for a whole batch with one
 :class:`ShardedDictionary` splits the table into key-hash-disjoint shards,
 one per fold thread of the host-map engine.
 
+With ``budget_words`` set, the word store flushes to a sorted run file on
+disk (``dictrun-*.bin``, the format of runtime/spill.py) whenever it
+reaches the budget, keeping only the packed-key/length arrays in RAM for
+membership and collision probes; egress then reads the whole dictionary
+through ``iter_sorted()`` / ``run_sources()``.
+
 ``extract_words`` is the plain tokenizer of *normalized* bytes (ASCII
 punctuation deleted with ``bytes.translate``, split on ASCII whitespace),
 which the tests hold the native scan against.
@@ -21,9 +28,14 @@ which the tests hold the native scan against.
 
 from __future__ import annotations
 
+import os
+import uuid
+from typing import Iterator
+
 import numpy as np
 
 from mapreduce_rust_tpu_torch.core.hashing import byte_class_tables
+from mapreduce_rust_tpu_torch.runtime import spill as spill_io
 
 
 def _delete_table() -> bytes:
@@ -40,6 +52,26 @@ def extract_words(normalized: bytes) -> list[bytes]:
     """Cleaned words of a normalized byte chunk, in order, duplicates kept
     (the semantics of core/hashing.tokenize_host, in two C-level passes)."""
     return normalized.translate(None, _DELETE).split()
+
+
+def new_run_token() -> str:
+    """Per-instance spill-run filename token, shared by both disk tiers
+    (dictionary ``dictrun-*`` and accumulator ``accrun-*``). The pid alone
+    is not unique: two tiers in one process, or a crashed job's leftovers
+    in a shared work_dir, must never collide on run names."""
+    return uuid.uuid4().hex[:8]
+
+
+def remove_run_files(runs: list) -> None:
+    """Delete spill run files and clear the list (job-end cleanup: runs
+    must not accumulate in a shared work_dir). Idempotent; missing files
+    are fine."""
+    for path in runs:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    runs.clear()
 
 
 _SHARD_MIX = 0x9E3779B97F4A7C15  # splitmix64 finalizer multiplier
@@ -67,9 +99,30 @@ def shard_ids_of_packed(packed, n_shards: int):
 
 
 class Dictionary:
-    """hash pair → word bytes, built incrementally at ingest, all in RAM."""
+    """hash pair → word bytes, built incrementally at ingest.
 
-    def __init__(self) -> None:
+    Bounded-memory tier: with ``budget_words`` set, the word store flushes
+    to a SORTED run file (``spill_dir/dictrun-*.bin``) whenever it reaches
+    the budget. The flush is a handoff, not a write: the RAM tier freezes
+    into a snapshot and a background
+    :class:`~mapreduce_rust_tpu_torch.runtime.spill.AsyncSpillWriter`
+    sorts, packs and writes it while this thread keeps folding
+    (``async_spill=False`` / ``MR_SPILL_SYNC=1`` writes inline). A spilled
+    dictionary no longer serves point probes for flushed words — egress
+    consumes ``iter_sorted()`` / ``run_sources()``. Equal-length pair
+    collisions on flushed words pass undetected, the same degradation
+    add_scanned_raw documents.
+    """
+
+    def __init__(self, budget_words: int | None = None,
+                 spill_dir: str | None = None,
+                 async_spill: bool = True) -> None:
+        if budget_words is not None and not spill_dir:
+            raise ValueError("budget_words needs a spill_dir")
+        self.budget_words = budget_words
+        self.spill_dir = spill_dir
+        self.async_spill = async_spill
+        self._writer: "spill_io.AsyncSpillWriter | None" = None
         self._word_of: dict[tuple[int, int], bytes] = {}
         self._seen: set[bytes] = set()
         # (k1<<32)|k2 → stored word length: the per-key membership filter
@@ -80,21 +133,146 @@ class Dictionary:
         # Vectorized steady-state filter for add_scanned_raw: sorted packed
         # keys + aligned stored lengths. Keys inserted since the last merge
         # wait in _fresh_*, so membership for a saturated vocabulary is one
-        # searchsorted instead of 10^4-10^5 dict lookups per window.
+        # searchsorted instead of 10^4-10^5 dict lookups per window. It
+        # spans both tiers, which keeps dedup exact after a flush.
         self._packed_sorted = np.empty(0, dtype=np.uint64)
         self._sorted_lens = np.empty(0, dtype=np.int64)
         self._fresh_keys: list[int] = []
         self._fresh_lens: list[int] = []
+        self._runs: list[str] = []
+        self._total_words = 0  # RAM + flushed distinct words
+        self._run_token = new_run_token()
 
     def __len__(self) -> int:
-        return len(self._word_of)
+        return self._total_words
+
+    def _guard_ram_only(self, what: str) -> None:
+        """After a budget flush a RAM-tier probe would answer from a
+        partial store (flushed words absent): raise instead."""
+        if self._runs:
+            raise RuntimeError(
+                f"Dictionary.{what} after a budget flush would only see the "
+                "RAM tier (flushed words live in disk runs) — consume "
+                "iter_sorted() instead"
+            )
+
+    def __contains__(self, key: tuple[int, int]) -> bool:
+        self._guard_ram_only("__contains__")
+        return key in self._word_of
+
+    def items(self) -> Iterator[tuple[tuple[int, int], bytes]]:
+        """RAM-resident entries; raises once any run was flushed (a
+        partial iteration would silently drop flushed words)."""
+        self._guard_ram_only("items")
+        return iter(self._word_of.items())
+
+    @property
+    def spilled(self) -> bool:
+        return bool(self._runs)
+
+    @property
+    def run_count(self) -> int:
+        return len(self._runs)
 
     def lookup(self, k1: int, k2: int) -> bytes | None:
+        """Point lookup — RAM-resident words only. A spilled dictionary
+        serves flushed words through iter_sorted()."""
         return self._word_of.get((k1, k2))
 
+    def _maybe_flush(self) -> None:
+        if self.budget_words is not None and len(self._word_of) >= self.budget_words:
+            self._flush_words()
+
+    def _flush_words(self) -> None:
+        """Spill the in-RAM word store as one sorted binary run; keep only
+        the packed-key/length arrays for membership + collision probes.
+        The argsort, the varint pack and the write run on the background
+        writer against a FROZEN snapshot; this thread only swaps in fresh
+        containers and enqueues (backpressure, when the writer falls two
+        runs behind, is timed into the writer's ``stall_s``)."""
+        if not self._word_of:
+            return
+        self._merge_fresh()
+        os.makedirs(self.spill_dir, exist_ok=True)
+        run_index = len(self._runs)
+        path = os.path.join(
+            self.spill_dir,
+            spill_io.run_file_name("dictrun", self._run_token, run_index, "bin"),
+        )
+        # Freeze the RAM tier: this thread never touches the snapshot
+        # again, so the writer reads it without a lock. Membership stays
+        # exact via _packed_sorted.
+        snapshot = self._word_of
+        self._word_of = {}
+        self._seen = set()
+        self._len_of = {}
+        self._runs.append(path)
+        token = self._run_token
+
+        def task() -> int:
+            keys, ends, buf = spill_io.pack_word_map(snapshot)
+            return spill_io.write_run_file(path, token, keys, ends, buf,
+                                           run_index=run_index)
+
+        self._ensure_writer().submit(task)
+
+    def _ensure_writer(self) -> "spill_io.AsyncSpillWriter":
+        self._writer = spill_io.ensure_writer(
+            self._writer, f"mr/spill-dict-{self._run_token}",
+            sync=not self.async_spill,
+        )
+        return self._writer
+
+    def drain_spills(self) -> None:
+        """Barrier: every enqueued run is on disk (or the writer's error
+        re-raises here, on the owner thread)."""
+        if self._writer is not None:
+            self._writer.drain()
+
+    def close_spills(self, abort: bool = True) -> None:
+        """Stop the writer thread; pending snapshots are discarded on
+        abort. Idempotent, never raises."""
+        if self._writer is not None:
+            self._writer.close(abort=abort)
+
+    def spill_stats(self) -> dict:
+        """Final spill accounting (collect AFTER drain/close): writer
+        seconds, owner stall seconds, bytes, runs, the per-run write_s
+        histogram. Zeros when this dictionary never spilled."""
+        return spill_io.tier_spill_stats(self._writer, len(self._runs))
+
+    def spill_snapshot(self) -> "tuple[float, float, int] | None":
+        """(write_s, stall_s, bytes) right now, or None if never spilled."""
+        return spill_io.tier_spill_snapshot(self._writer)
+
+    def remove_runs(self) -> None:
+        """Job-end cleanup of this dictionary's run files. Closes the
+        writer first — a run mid-write must finish (or be discarded)
+        before its file is unlinked."""
+        self.close_spills(abort=True)
+        remove_run_files(self._runs)
+
+    def run_sources(self) -> "list[spill_io.RunSource]":
+        """The key-disjoint sorted merge sources of this dictionary: every
+        disk run memory-mapped, plus the RAM tier packed by the same
+        argsort the flush uses. Drains the writer first."""
+        self.drain_spills()
+        sources = [spill_io.read_run_file(p) for p in self._runs]
+        if self._word_of:
+            keys, ends, buf = spill_io.pack_word_map(self._word_of)
+            sources.append(spill_io.RunSource(keys, ends, buf))
+        return sources
+
+    def iter_sorted(self) -> Iterator[tuple[int, int, int, bytes]]:
+        """(packed, k1, k2, word) over the WHOLE dictionary — disk runs
+        plus the RAM tier — in ascending packed-key order. Tiers are
+        key-disjoint (membership spans both), so this is a plain k-way
+        merge with no dedup."""
+        return spill_io.iter_sources_sorted(self.run_sources())
+
     def _stored_len(self, packed: int) -> "int | None":
-        """Stored word length for a packed key, or None if unseen (fresh
-        dict + merged sorted arrays)."""
+        """Stored word length for a packed key, or None if unseen — exact
+        membership across BOTH tiers (fresh dict + merged sorted arrays)."""
         v = self._len_of.get(packed)
         if v is not None:
             return v
@@ -125,10 +303,18 @@ class Dictionary:
                 self._fresh_lens.append(len(w))
                 word_of[key] = w
                 added += 1
+                self._total_words += 1
             else:
                 prev = word_of.get(key)
                 if prev is not None and prev != w:
                     self.collisions.append((prev, w))
+                elif prev is None:
+                    # A flushed word recurring after a budget flush: dedup
+                    # held via _stored_len, but it must NOT rejoin _seen,
+                    # which would regrow toward the whole vocabulary and
+                    # defeat the budget.
+                    seen.discard(w)
+        self._maybe_flush()
         return added
 
     def add_scanned(self, words: list[bytes], keys: np.ndarray) -> int:
@@ -210,6 +396,7 @@ class Dictionary:
                 self._fresh_keys.extend(p_new)
                 self._fresh_lens.extend(w_new)
                 added += len(words)
+                self._total_words += len(words)
                 for i, s in zip(dup_i.tolist(),
                                 np.where(dup_i > 0, ends[dup_i - 1], 0).tolist()):
                     w = raw[s:ends[i]]
@@ -238,6 +425,7 @@ class Dictionary:
             # so amortize it against a constant fraction of V.
             if len(self._fresh_keys) >= max(1024, len(self._packed_sorted) // 4):
                 self._merge_fresh()
+            self._maybe_flush()
         return added
 
     def _merge_fresh(self) -> None:
@@ -264,9 +452,11 @@ class ShardedDictionary:
 
     Shards are key-DISJOINT by construction — a key lives on shard
     ``shard_of_packed(packed, S)`` and nowhere else — so no cross-shard
-    dedup exists. Mutations go through the shards directly (each on its
-    owner thread); this wrapper exposes the read surface run_job's
-    finalize consumes.
+    dedup exists, and the spill tiers compose: every shard's runs and RAM
+    tier are sources of one flat k-way merge. Word totals, collisions and
+    spill runs aggregate over the shards. Mutations go through the shards
+    directly (each on its owner thread); this wrapper exposes the read
+    and lifecycle surface run_job's finalize consumes.
     """
 
     def __init__(self, shards: "list[Dictionary]") -> None:
@@ -290,3 +480,64 @@ class ShardedDictionary:
 
     def lookup(self, k1: int, k2: int) -> "bytes | None":
         return self.shards[self.shard_of(k1, k2)].lookup(k1, k2)
+
+    @property
+    def spilled(self) -> bool:
+        return any(s.spilled for s in self.shards)
+
+    @property
+    def run_count(self) -> int:
+        return sum(s.run_count for s in self.shards)
+
+    def remove_runs(self) -> None:
+        for s in self.shards:
+            s.remove_runs()
+
+    def drain_spills(self) -> None:
+        for s in self.shards:
+            s.drain_spills()
+
+    def close_spills(self, abort: bool = True) -> None:
+        for s in self.shards:
+            s.close_spills(abort=abort)
+
+    def spill_stats(self) -> dict:
+        """Spill accounting summed over the shards (one writer each); the
+        per-run write histograms merge into one."""
+        from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
+
+        out = {"write_s": 0.0, "stall_s": 0.0, "bytes": 0, "runs": 0,
+               "hist": None}
+        for s in self.shards:
+            st = s.spill_stats()
+            for k in ("write_s", "stall_s", "bytes", "runs"):
+                out[k] += st[k]
+            h = st["hist"]
+            if h is not None and h.count:
+                if out["hist"] is None:
+                    out["hist"] = Histogram()
+                out["hist"].merge(h)
+        return out
+
+    def spill_snapshot(self) -> "tuple[float, float, int] | None":
+        snaps = [x for x in (s.spill_snapshot() for s in self.shards) if x is not None]
+        if not snaps:
+            return None
+        return (sum(x[0] for x in snaps), sum(x[1] for x in snaps),
+                sum(x[2] for x in snaps))
+
+    def run_sources(self) -> list:
+        """Every shard's merge sources in one flat list (shards are
+        key-disjoint like tiers)."""
+        return [src for s in self.shards for src in s.run_sources()]
+
+    def items(self):
+        """RAM-resident entries across all shards; each shard raises its
+        own spilled guard."""
+        for s in self.shards:
+            yield from s.items()
+
+    def iter_sorted(self):
+        """(packed, k1, k2, word) over ALL shards in ascending packed-key
+        order — the contract of Dictionary.iter_sorted."""
+        return spill_io.iter_sources_sorted(self.run_sources())

@@ -80,11 +80,15 @@ from mapreduce_rust_tpu_torch.runtime.chunker import (
     resolve_corpora,
     utf8_safe_cut,
 )
+from mapreduce_rust_tpu_torch.runtime import spill as spill_io
 from mapreduce_rust_tpu_torch.runtime.dictionary import (
     Dictionary,
     ShardedDictionary,
     extract_words,
+    new_run_token,
+    remove_run_files,
 )
+from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
 from mapreduce_rust_tpu_torch.runtime.metrics import JobStats, log
 from mapreduce_rust_tpu_torch.runtime.splitter import prepare_app
 
@@ -184,6 +188,14 @@ def _combine_rows(op: str, keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
     return _unpack_rows(uniq, folded)
 
 
+def _combine_pending(op: str, keys_list, vals_list) -> np.ndarray:
+    """Combine pending (keys, vals) batches into sorted deduped rows
+    [n, 3] (k1, k2, value) — value-keyed for "distinct", else folded.
+    Module-level and pure, so the spill writer runs it against a frozen
+    snapshot off the owner thread."""
+    return _combine_rows(op, np.concatenate(keys_list), np.concatenate(vals_list))
+
+
 class HostAccumulator:
     """Exact host-side fold of device spills + the final state, per op.
 
@@ -191,33 +203,135 @@ class HostAccumulator:
     (np.unique over the concatenated batches + ufunc.at). Keys arrive as
     uint32 views (KVBatch.to_host), so the int64 cast keeps them unsigned
     and ``k1 % reduce_n`` routes them as the reference does. Under
-    "distinct" the table maps each key to the SET of its values: spills
-    and the final state are unioned, so a key that an eviction cut in two
-    comes back whole.
+    "distinct" the rows are one per (key, value) pair and ``table`` maps
+    each key to the SET of its values: spills and the final state are
+    unioned, so a key that an eviction cut in two comes back whole.
+
+    Bounded-memory tier: with ``budget_bytes`` set, pending arrays above
+    the budget are combined into a SORTED, deduped run on disk
+    (``spill_dir/accrun-*.npy``) by a background
+    :class:`~mapreduce_rust_tpu_torch.runtime.spill.AsyncSpillWriter` and
+    dropped from RAM; ``fold_arrays()`` drains the writer and merges the
+    runs back exactly.
     """
 
-    def __init__(self, op: str) -> None:
+    def __init__(self, op: str, budget_bytes: int | None = None,
+                 spill_dir: str | None = None,
+                 async_spill: bool = True) -> None:
+        if budget_bytes is not None and not spill_dir:
+            raise ValueError("budget_bytes needs a spill_dir")
         self.op = op
+        self.budget_bytes = budget_bytes
+        self.spill_dir = spill_dir
+        self.async_spill = async_spill
         self._keys: list[np.ndarray] = []   # each [N, 2] int64
         self._vals: list[np.ndarray] = []   # each [N] int64
+        self._pending_bytes = 0
+        self._runs: list[str] = []          # sorted, deduped [n,3] .npy files
         self._table: dict | None = None
+        self._run_token = new_run_token()
+        self._writer: "spill_io.AsyncSpillWriter | None" = None
 
     def add(self, keys: np.ndarray, vals: np.ndarray) -> None:
         keys = np.asarray(keys, dtype=np.int64).reshape(-1, 2)
         if len(keys):
+            vals = np.asarray(vals, dtype=np.int64).reshape(-1)
             self._keys.append(keys)
-            self._vals.append(np.asarray(vals, dtype=np.int64).reshape(-1))
+            self._vals.append(vals)
+            self._pending_bytes += keys.nbytes + vals.nbytes
             self._table = None
+            if self.budget_bytes is not None and self._pending_bytes > self.budget_bytes:
+                self._flush_run()
 
     def add_batch(self, batch: KVBatch) -> None:
         self.add(*batch.to_host())
 
+    @property
+    def has_runs(self) -> bool:
+        return bool(self._runs)
+
+    @property
+    def run_count(self) -> int:
+        return len(self._runs)
+
+    def _flush_run(self) -> None:
+        """Freeze the pending batches and hand the combine + write to the
+        background writer; this thread only swaps in fresh lists and
+        enqueues."""
+        keys, vals = self._keys, self._vals
+        self._keys, self._vals = [], []
+        self._pending_bytes = 0
+        os.makedirs(self.spill_dir, exist_ok=True)
+        run_index = len(self._runs)
+        path = os.path.join(
+            self.spill_dir,
+            spill_io.run_file_name("accrun", self._run_token, run_index, "npy"),
+        )
+        self._runs.append(path)
+        op = self.op
+
+        def task() -> int:
+            rows = _combine_pending(op, keys, vals)
+            written = spill_io.write_npy_run(path, rows, run_index=run_index)
+            log.info("host accumulator: spilled run %d (%d rows)", run_index + 1, len(rows))
+            return written
+
+        self._writer = spill_io.ensure_writer(
+            self._writer, f"mr/spill-acc-{self._run_token}", sync=not self.async_spill)
+        self._writer.submit(task)
+
+    def drain_spills(self) -> None:
+        """Barrier before any read of the run files (fold_arrays) or the
+        final accounting; re-raises a recorded writer error."""
+        if self._writer is not None:
+            self._writer.drain()
+
+    def close_spills(self, abort: bool = True) -> None:
+        if self._writer is not None:
+            self._writer.close(abort=abort)
+
+    def spill_stats(self) -> dict:
+        return spill_io.tier_spill_stats(self._writer, len(self._runs))
+
+    def remove_runs(self) -> None:
+        """Job-end cleanup of this accumulator's run files. Closes the
+        writer first so no run lands after its unlink."""
+        self.close_spills(abort=True)
+        remove_run_files(self._runs)
+
+    def _combine_sorted(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Merge two sorted deduped [n,3] row arrays into one (the same
+        packed-column kernel as the pending fold, so the run merge and the
+        pending combine cannot order differently). "distinct" rows stay
+        keyed on (key, value)."""
+        rows = np.concatenate([a, b])
+        return _combine_rows(self.op, rows[:, :2], rows[:, 2])
+
     def fold_arrays(self) -> np.ndarray:
-        """The exact fold as sorted rows [n, 3] (k1, k2, value)."""
-        if not self._keys:
-            return np.empty((0, 3), np.int64)
-        return _combine_rows(self.op, np.concatenate(self._keys),
-                             np.concatenate(self._vals))
+        """The exact fold as sorted rows [n, 3] (k1, k2, value) — one row
+        per distinct key (scalar ops) or per distinct (key, value) pair
+        ("distinct"). Runs merge through a binary-counter tree (equal-size
+        partials first), so a K-run fold costs O(total log K) combine
+        work; peak memory stays O(result)."""
+        self.drain_spills()  # every enqueued run must be on disk first
+        stack: list[tuple[int, np.ndarray]] = []  # (level, rows)
+
+        def push(rows: np.ndarray) -> None:
+            level = 0
+            while stack and stack[-1][0] == level:
+                _, prev = stack.pop()
+                rows = self._combine_sorted(prev, rows)
+                level += 1
+            stack.append((level, rows))
+
+        for path in self._runs:
+            push(np.load(path))
+        if self._keys:
+            push(_combine_pending(self.op, self._keys, self._vals))
+        rows = np.empty((0, 3), np.int64)
+        for _, r in stack:
+            rows = self._combine_sorted(rows, r)
+        return rows
 
     @property
     def table(self) -> dict:
@@ -1237,7 +1351,14 @@ def run_job(
     With ``inputs=None`` the corpora come from ``Config.corpora()``
     (``input_dirs``) and the flat doc_id space concatenates their sorted
     listings; a caller that passes ``inputs`` passes the matching
-    ``corpus_bounds`` (resolve_corpora's) too."""
+    ``corpus_bounds`` (resolve_corpora's) too.
+
+    With a spill budget set (``host_accum_budget_mb``,
+    ``dictionary_budget_words``) the tiers that pass it write sorted runs
+    to ``work_dir`` and the job ends through the streaming merge-join
+    egress (``_stream_finalize``), which delivers results only through the
+    output files: ``JobResult.table`` is then empty. The run files are
+    removed when the job ends, whether it succeeds or raises."""
     t0 = time.perf_counter()
     device = select_device(cfg.device)
     app = app or WordCount()
@@ -1249,37 +1370,98 @@ def run_job(
         inputs = list(inputs)
     if not inputs:
         raise ValueError("no input files")
+    budgeted = (cfg.host_accum_budget_mb is not None
+                or cfg.dictionary_budget_words is not None)
+    if budgeted and not write_outputs:
+        # The streaming egress delivers results only through output files:
+        # without them a budgeted run would compute everything and return
+        # an empty table.
+        raise ValueError("egress budgets require write_outputs=True")
 
     stats = JobStats()
     # Bind corpus bounds and, for range apps, sampled splitters onto the
     # app before anything streams (reference driver.py:2916-2922): a join
     # with one corpus fails here, and every engine routes identically.
     app = prepare_app(app, cfg, inputs, corpus_bounds or (), stats=stats)
-    acc = HostAccumulator(app.combine_op)
+    # A killed job's remove_runs never ran: reclaim the run files whose
+    # writer pid is gone before this job's own tiers exist.
+    spill_io.scavenge_stale_runs(cfg.work_dir, logger=log)
+    acc = HostAccumulator(
+        app.combine_op,
+        budget_bytes=(cfg.host_accum_budget_mb << 20
+                      if cfg.host_accum_budget_mb is not None else None),
+        spill_dir=cfg.work_dir, async_spill=cfg.spill_async,
+    )
     # The host-map engine splits the dictionary into key-hash-disjoint
     # shards, one per fold thread; the device engine folds on its consumer.
+    # The word budget splits across the shards, so it bounds the job, not
+    # each shard.
     fold_shards = cfg.effective_fold_shards() if cfg.map_engine == "host" else 1
     if fold_shards > 1:
-        dictionary = ShardedDictionary([Dictionary() for _ in range(fold_shards)])
+        per_shard = (max(1, cfg.dictionary_budget_words // fold_shards)
+                     if cfg.dictionary_budget_words is not None else None)
+        dictionary = ShardedDictionary([
+            Dictionary(budget_words=per_shard, spill_dir=cfg.work_dir,
+                       async_spill=cfg.spill_async)
+            for _ in range(fold_shards)
+        ])
     else:
-        dictionary = Dictionary()
-    output_files: list[str] = []
-    table: dict = {}
+        dictionary = Dictionary(budget_words=cfg.dictionary_budget_words,
+                                spill_dir=cfg.work_dir, async_spill=cfg.spill_async)
 
-    with stats.phase("stream"):
-        if cfg.map_engine == "host":
-            _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
+    try:
+        with stats.phase("stream"):
+            if cfg.map_engine == "host":
+                _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
+            else:
+                _stream_single(cfg, app, inputs, stats, acc, dictionary, device)
+
+        spilled = acc.has_runs or dictionary.spilled
+        streaming = spilled and type(app).finalize is App.finalize
+        if spilled and not streaming:
+            log.warning(
+                "app %s overrides finalize — rehydrating spilled egress tiers "
+                "into RAM (exact, but unbounded)", app.name
+            )
+        if streaming:
+            table, output_files = {}, _stream_finalize(cfg, app, stats, acc, dictionary)
         else:
-            _stream_single(cfg, app, inputs, stats, acc, dictionary, device)
+            table, output_files = _ram_finalize(cfg, app, stats, acc, dictionary,
+                                                write_outputs)
+        stats.wall_seconds = time.perf_counter() - t0
+        log.info("job %s done: %s", app.name, stats.summary())
+    finally:
+        # Run files are job-scoped scratch: their counts survive in the
+        # stats as the proof the disk tiers engaged. remove_runs joins
+        # every writer, so the collection below reads final counters.
+        stats.accum_spill_runs = acc.run_count
+        stats.dict_spill_runs = dictionary.run_count
+        acc.remove_runs()
+        dictionary.remove_runs()
+        _collect_spill_stats(stats, dictionary, acc)
+    return JobResult(stats=stats, table=table, output_files=output_files)
 
+
+def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
+                  dictionary, write_outputs: bool) -> tuple[dict, list[str]]:
+    """The in-RAM egress: one (word, value) item per key through
+    ``app.finalize``; returns the word → value table and the output files.
+    A spilled dictionary (an app that overrides finalize, like top_k) is
+    rehydrated once from its sorted stream — exact, but unbounded."""
+    table: dict = {}
+    output_files: list[str] = []
     with stats.phase("finalize"):
         stats.distinct_keys = len(acc.table)
         stats.dictionary_words = len(dictionary)
         stats.hash_collisions = len(dictionary.collisions)
         items = []
         is_distinct = app.combine_op == "distinct"
+        lookup = dictionary.lookup
+        if dictionary.spilled:
+            full = {(k1, k2): w for _p, k1, k2, w in dictionary.iter_sorted()}
+            lookup = lambda k1, k2: full.get((k1, k2))  # noqa: E731
         for key, v in acc.table.items():
-            word = dictionary.lookup(*key)
+            word = lookup(*key)
             if word is None:
                 stats.unknown_keys += 1
                 continue
@@ -1301,10 +1483,125 @@ def run_job(
                 # Per-partition output bytes: the reduce-side skew signal.
                 stats.partition_bytes.append(written)
                 output_files.append(path)
+    return table, output_files
 
-    stats.wall_seconds = time.perf_counter() - t0
-    log.info("job %s done: %s", app.name, stats.summary())
-    return JobResult(stats=stats, table=table, output_files=output_files)
+
+def _stream_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
+                     dictionary) -> list[str]:
+    """Bounded-memory egress (reference ``driver.py:3219-3375``): one
+    merge-join of the accumulator's sorted fold against the dictionary's
+    sorted word stream, routed into per-partition line files, each sorted
+    on its own at the end. Peak RAM is O(fold rows + one partition's
+    lines), never O(vocabulary) of Python objects.
+
+    The dictionary's sources (every run, every shard, the RAM tiers;
+    key-disjoint) merge in key blocks through the native loser tree, and
+    each block joins the fold with one ``searchsorted`` over the fold's
+    packed keys. All three key columns — the fold rows packed as
+    ``uint64 (k1<<32)|k2``, the runs' key column and the merge's output —
+    are unsigned, so they sort alike. Implements the default egress
+    contract (``app.route_block``, ``app.emit_lines``, bytewise sort per
+    partition); run_job takes the in-RAM path for apps that override
+    ``App.finalize``."""
+    import shutil
+    import tempfile
+
+    with stats.phase("finalize"):
+        rows = acc.fold_arrays()  # sorted by (k1, k2[, value])
+        is_distinct = app.combine_op == "distinct"
+        packed_rows = _pack_key_cols(rows[:, :2])
+        n = len(rows)
+        if is_distinct:
+            key_change = np.empty(n, dtype=bool)
+            if n:
+                key_change[0] = True
+                key_change[1:] = packed_rows[1:] != packed_rows[:-1]
+            stats.distinct_keys = int(key_change.sum())
+        else:
+            stats.distinct_keys = n
+        stats.dictionary_words = len(dictionary)
+        stats.hash_collisions = len(dictionary.collisions)
+
+    with stats.phase("egress"):
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        tmpdir = tempfile.mkdtemp(prefix="egress-", dir=cfg.output_dir)
+        # One try/finally spans the merge-join and the per-partition sort,
+        # so a failure in either still removes the part files.
+        try:
+            parts = [open(os.path.join(tmpdir, f"part-{r}"), "wb")
+                     for r in range(cfg.reduce_n)]
+            matched = 0
+            try:
+                sources = dictionary.run_sources()
+                stats.merge_fanin = len(sources)
+                for keys_b, src_b, idx_b in spill_io.merge_sources(sources):
+                    ends_g = None
+                    if n:
+                        pos = np.searchsorted(packed_rows, keys_b)
+                        posc = np.minimum(pos, n - 1)
+                        hit = (pos < n) & (packed_rows[posc] == keys_b)
+                        if is_distinct:
+                            # Fold rows repeat per (key, value): each
+                            # group's exclusive end.
+                            ends_g = np.searchsorted(packed_rows, keys_b, side="right")
+                    else:
+                        hit = np.zeros(len(keys_b), dtype=bool)
+                    hits = np.nonzero(hit)[0]
+                    if not len(hits):
+                        continue  # dictionary words absent from the fold
+                    # Word bytes only for keys the fold holds.
+                    words = spill_io.slice_block_words(sources, src_b[hits], idx_b[hits])
+                    rr = app.route_block(
+                        words, (keys_b[hits] >> np.uint64(32)).astype(np.int64),
+                        cfg.reduce_n)
+                    pos_h = pos[hits]
+                    emit = app.emit_lines
+                    # One buffered write per (block, partition).
+                    blk_lines: list[list] = [[] for _ in range(cfg.reduce_n)]
+                    if is_distinct:
+                        for w, r, i, j in zip(words, rr, pos_h.tolist(),
+                                              ends_g[hits].tolist()):
+                            blk_lines[r].extend(emit(w, sorted(rows[i:j, 2].tolist())))
+                    else:
+                        for w, r, v in zip(words, rr, rows[pos_h, 2].tolist()):
+                            blk_lines[r].extend(emit(w, v))
+                    for r, ls in enumerate(blk_lines):
+                        if ls:
+                            parts[r].write(b"\n".join(ls) + b"\n")
+                    matched += len(hits)
+            finally:
+                for f in parts:
+                    f.close()
+            stats.unknown_keys = stats.distinct_keys - matched
+
+            output_files: list[str] = []
+            for r in range(cfg.reduce_n):
+                with open(os.path.join(tmpdir, f"part-{r}"), "rb") as f:
+                    lines = f.read().splitlines()
+                lines.sort()
+                buf = b"\n".join(lines) + b"\n" if lines else b""
+                stats.partition_bytes.append(len(buf))
+                path = os.path.join(cfg.output_dir, f"mr-{r}.txt")
+                with open(path, "wb") as f:
+                    f.write(buf)
+                output_files.append(path)
+        finally:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+    return output_files
+
+
+def _collect_spill_stats(stats: JobStats, dictionary, acc: HostAccumulator) -> None:
+    """Fold the spill writers' final tallies into JobStats — run_job's
+    thread only, after remove_runs joined the writers. The per-run
+    write_s histograms merge into one ``spill.write_s`` distribution."""
+    d = dictionary.spill_stats()
+    a = acc.spill_stats()
+    stats.spill_s = d["write_s"] + a["write_s"]
+    stats.spill_stall_s = d["stall_s"] + a["stall_s"]
+    stats.spill_bytes = d["bytes"] + a["bytes"]
+    for h in (d["hist"], a["hist"]):
+        if h is not None and h.count:
+            stats.hists.setdefault("spill.write_s", Histogram()).merge(h)
 
 
 def merge_outputs(output_files: Sequence[str], out_path: str) -> None:

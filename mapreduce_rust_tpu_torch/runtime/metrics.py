@@ -1,10 +1,10 @@
 """Job metrics & phase timing — per phase, never per record.
 
 The port of ``mapreduce_rust_tpu/runtime/metrics.py::JobStats`` for the
-counters the single-device engines (device and host-map) and egress fill, under the
-reference's names, so a port run and a reference run compare field by
-field. The live metrics
-registry, histograms and tracing come with a later slice.
+counters the single-device engines (device and host-map), the spill
+tiers and egress fill, under the reference's names, so a port run and a
+reference run compare field by field. The live metrics registry and
+tracing come with a later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +26,11 @@ class JobStats:
     spill_events: int = 0         # merges whose evicted tail was non-empty
     spilled_keys: int = 0         # records moved device → host accumulator
     partial_overflow_replays: int = 0  # chunks re-run on the full-width path
-    dictionary_words: int = 0
+    accum_spill_runs: int = 0     # accrun-* disk runs the accumulator's
+                                  # budget tier wrote (counted at job end,
+                                  # before the run files are deleted)
+    dict_spill_runs: int = 0      # dictrun-* disk runs, same contract
+    dictionary_words: int = 0     # distinct words over both tiers
     hash_collisions: int = 0
     unknown_keys: int = 0         # final keys missing from the dictionary
     wall_seconds: float = 0.0
@@ -50,6 +54,12 @@ class JobStats:
     fold_s: float = 0.0           # dictionary fold seconds (device engine:
                                   # its consumer; host engine: summed over shards)
     fold_stall_s: float = 0.0     # router blocked on full shard queues
+    # Spill tiers (runtime/spill.py), summed over every writer thread.
+    spill_s: float = 0.0          # writer seconds sorting/packing/writing runs
+    spill_stall_s: float = 0.0    # owner seconds blocked on a full writer queue
+    spill_bytes: int = 0          # bytes written to runs (both tiers)
+    merge_fanin: int = 0          # sources the egress k-way merge saw
+                                  # (0 = in-RAM egress)
     host_arena_bytes: int = 0     # live native scan arenas at stream end
     # Egress and the workload plane.
     partition_bytes: list = dataclasses.field(default_factory=list)
@@ -60,6 +70,8 @@ class JobStats:
     splitter_samples: int = 0     # tokens the splitter pre-pass drew
     # across all inputs (range apps only; 0 = no pre-pass ran)
     splitter_s: float = 0.0       # wall seconds of the sample+derive pre-pass
+    # Named distributions: "spill.write_s" (seconds per run, every writer).
+    hists: dict = dataclasses.field(default_factory=dict)
 
     @property
     def gb_per_s(self) -> float:
@@ -75,6 +87,10 @@ class JobStats:
                  "host-map": scan, "host-glue": self.host_glue_s}
         if self.fold_shards > 1:
             parts["host-fold"] = self.fold_stall_s
+        if self.spill_s > 0 or self.spill_stall_s > 0:
+            # Runs are written off the hot threads: "the disk is the
+            # ceiling" reads as the owners' writer backpressure.
+            parts["spill"] = self.spill_stall_s
         if self.dispatch_mode.startswith("async"):
             parts["merge-dispatch"] = self.dispatch_stall_s
         name, val = max(parts.items(), key=lambda kv: kv[1])
@@ -106,4 +122,8 @@ class JobStats:
                f"fold={self.fold_s:.2f}s dispatch={self.dispatch_s:.2f}s "
                f"merges={self.merge_dispatches} fill={self.merge_fill_frac:.3f} "
                f"{self.dispatch_mode}]" if self.dispatch_mode else "")
+            + (f" spill[runs acc={self.accum_spill_runs} dict={self.dict_spill_runs} "
+               f"write={self.spill_s:.2f}s stall={self.spill_stall_s:.2f}s "
+               f"bytes={self.spill_bytes} fanin={self.merge_fanin}]"
+               if self.accum_spill_runs or self.dict_spill_runs else "")
         )

@@ -198,6 +198,13 @@ for engine in ("device", "host"):
     assert res.table == {b"hello": 3, b"world": 1, "café".encode(): 1}, res.table
     res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
                          output_dir=sys.argv[2], work_dir=sys.argv[2],
+                         map_engine=engine, host_accum_budget_mb=0,
+                         dictionary_budget_words=1))
+    assert res.stats.accum_spill_runs > 0 and res.stats.dict_spill_runs > 0
+    lines = b"".join(open(p, "rb").read() for p in res.output_files).splitlines()
+    assert sorted(lines) == ["café 1".encode(), b"hello 3", b"world 1"], lines
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2], work_dir=sys.argv[2],
                          map_engine=engine), app=get_app("inverted_index"))
     assert res.table == {b"hello": [0, 1], b"world": [0], "café".encode(): [0]}, res.table
     res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
