@@ -78,7 +78,22 @@ one JSON line; any failure raises and ends the run:
    spill-topk — top_k on documents 0-1 with a 2^17-word dictionary
               budget, through the rehydrate path (top_k overrides
               finalize);
-12. cli     — a few-MB unicode/punctuation corpus through
+12. cluster — the coordinator/worker task path on the zipf-256M corpus (4
+              files: map_n 4, reduce_n 8, default Config): a port
+              Coordinator.serve() and two Worker(engine="device") as
+              asyncio tasks in this process, worker_n 2; every mr-{r}.txt
+              exact, tokenize_hash launched at least once per map-task
+              chunk, every mr-{m}-{r}.npz and dict-{m}-{r}.txt shard
+              present, no spill run left; wall, the map and reduce task
+              durations from job_report.json and peak device memory;
+    cluster-kill — the same job through the CLI in subprocesses
+              (``coordinator --worker-n 2`` and two ``worker --engine
+              device``), one worker with ``--chaos 'kill:map:*'``: it
+              SIGKILLs itself on its first map task while holding the
+              lease; outputs exact, job_report.json shows a lease expiry
+              and a re-execution, the victim died by SIGKILL and the
+              survivor exited 0; every process has a timeout;
+13. cli     — a few-MB unicode/punctuation corpus through
               ``python -m mapreduce_rust_tpu_torch run``, once per engine,
               checked against the port's reference_word_counts; then
               ``--app grep --query ...`` and ``--app join --input a=DIR
@@ -976,6 +991,178 @@ def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> l
     return runs
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cluster_checks(name: str, out_dir: pathlib.Path, work_dir: pathlib.Path,
+                    truth, map_n: int, reduce_n: int) -> dict:
+    """Exact outputs, every intermediate shard present, no spill run left;
+    returns the output lines and the job report's task durations."""
+    files = [str(out_dir / f"mr-{r}.txt") for r in range(reduce_n)]
+    lines = check_zipf_outputs(files, truth)
+    missing = [f"{kind}-{m}-{r}.{ext}" for m in range(map_n) for r in range(reduce_n)
+               for kind, ext in (("mr", "npz"), ("dict", "txt"))
+               if not (work_dir / f"{kind}-{m}-{r}.{ext}").exists()]
+    check(not missing, f"{name}: intermediate shards missing: {missing[:4]}")
+    left = [p.name for p in work_dir.glob("*run-*")]
+    check(not left, f"{name}: spill run files left in the work dir: {left[:4]}")
+    report = json.loads((work_dir / "job_report.json").read_text())["report"]
+    durations = {ph: {tid: t["duration_s"] for tid, t in sorted(tasks.items())}
+                 for ph, tasks in report["tasks"].items()}
+    for ph in ("map", "reduce"):
+        check(report["totals"][ph]["completed"] == (map_n if ph == "map" else reduce_n),
+              f"{name}: {report['totals'][ph]['completed']} {ph} tasks completed")
+    return {"output_lines": lines, "task_s": durations, "totals": {
+        ph: {k: t[k] for k in ("completed", "expiries", "re_executions", "late_reports")}
+        for ph, t in report["totals"].items()}}
+
+
+def _map_chunks(inputs, chunk_bytes: int) -> int:
+    """The chunks the device engine streams for these map tasks, one
+    ``tokenize_hash`` launch each."""
+    from mapreduce_rust_tpu_torch.runtime.chunker import chunk_stream
+
+    chunks = 0
+    for path in inputs:
+        with open(path, "rb") as f:
+            chunks += sum(1 for _ in chunk_stream(f, 0, chunk_bytes))
+    return chunks
+
+
+def phase_cluster(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
+    """The coordinator and two device-engine workers as asyncio tasks in
+    this process, over TCP, on the zipf corpus with the default Config."""
+    import asyncio
+
+    import torch
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.coordinator.server import Coordinator
+    from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
+    from mapreduce_rust_tpu_torch.worker.runtime import Worker
+
+    out_dir, work_dir = work / "cluster-out", work / "cluster-work"
+    inputs = sorted(corpus.glob("*.txt"))
+    cfg = Config(map_n=len(inputs), reduce_n=8, worker_n=2, port=_free_port(),
+                 input_dir=str(corpus), output_dir=str(out_dir), work_dir=str(work_dir))
+
+    async def cluster():
+        serve = asyncio.create_task(Coordinator(cfg).serve())
+        await asyncio.sleep(0.2)
+        workers = [asyncio.create_task(Worker(cfg, engine="device").run())
+                   for _ in range(2)]
+        await asyncio.wait_for(asyncio.gather(*workers), timeout=600)
+        await asyncio.wait_for(serve, timeout=60)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hash_scan.launches = tokenize_hash.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(cluster())
+    wall = time.perf_counter() - t0
+    launches = {"hash_scan": hash_scan.launches, "tokenize_hash": tokenize_hash.launches}
+    peak = torch.cuda.max_memory_allocated()
+    chunks = _map_chunks(inputs, cfg.chunk_bytes)
+    fields = _cluster_checks("cluster", out_dir, work_dir, truth, len(inputs), cfg.reduce_n)
+    # No fault is injected here, so every map task runs once: one launch
+    # per chunk, no more.
+    reexec = sum(t["re_executions"] for t in fields["totals"].values())
+    check(reexec == 0, f"cluster: {reexec} re-executions without an injected fault")
+    check(launches["tokenize_hash"] == chunks > 0, f"cluster: tokenize_hash launched "
+          f"{launches['tokenize_hash']} times for {chunks} map-task chunks")
+    out = {"phase": "cluster", "exact": True, "map_engine": "device", "workers": 2,
+           "map_n": len(inputs), "reduce_n": cfg.reduce_n, "wall_s": wall,
+           "launches": launches, "chunks": chunks, "device_mem_peak_bytes": peak,
+           **fields}
+    emit(out)
+    return out
+
+
+def phase_cluster_kill(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
+    """The CLI: a coordinator and two device-engine worker processes, one
+    of which SIGKILLs itself on its first map task. The survivor's
+    manifest shows that it ran every map task on the card."""
+    import signal
+
+    import torch
+
+    from mapreduce_rust_tpu_torch.config import Config
+
+    out_dir, work_dir = work / "kill-out", work / "kill-work"
+    logs = work / "kill-logs"
+    logs.mkdir()
+    common = ["--input", str(corpus), "--output", str(out_dir), "--work", str(work_dir),
+              "--port", str(_free_port()), "--reduce-n", "8"]
+    manifest = ["--manifest", str(logs / "manifest.json")]
+    cli = [sys.executable, "-m", "mapreduce_rust_tpu_torch"]
+    cmds = {"coordinator": [*cli, "coordinator", "--worker-n", "2", *common],
+            "victim": [*cli, "worker", "--engine", "device", "--chaos", "kill:map:*",
+                       *manifest, *common],
+            "survivor": [*cli, "worker", "--engine", "device", *manifest, *common]}
+    timeouts = {"victim": 300, "survivor": 900, "coordinator": 60}
+    procs: dict = {}
+    rcs: dict = {}
+    t0 = time.perf_counter()
+    try:
+        for name, cmd in cmds.items():
+            with open(logs / f"{name}.log", "wb") as log:
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                               stderr=subprocess.STDOUT)
+            if name == "coordinator":
+                time.sleep(1.0)
+        for name in ("victim", "survivor", "coordinator"):
+            try:
+                rcs[name] = procs[name].wait(timeout=timeouts[name])
+            except subprocess.TimeoutExpired:
+                rcs[name] = None
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if rcs != {"victim": -signal.SIGKILL, "survivor": 0, "coordinator": 0}:
+        for name in cmds:
+            tail = (logs / f"{name}.log").read_bytes()[-3000:].decode(errors="replace")
+            print(f"--- cluster-kill {name} (rc {rcs.get(name)}):\n{tail}", file=sys.stderr)
+    check(rcs["victim"] == -signal.SIGKILL,
+          f"cluster-kill: the victim exited {rcs['victim']}, not by SIGKILL")
+    check(rcs["survivor"] == 0, f"cluster-kill: the survivor exited {rcs['survivor']}")
+    check(rcs["coordinator"] == 0, f"cluster-kill: the coordinator exited {rcs['coordinator']}")
+    fields = _cluster_checks("cluster-kill", out_dir, work_dir, truth,
+                             len(list(corpus.glob("*.txt"))), 8)
+    expiries = sum(t["expiries"] for t in fields["totals"].values())
+    reexec = sum(t["re_executions"] for t in fields["totals"].values())
+    check(expiries >= 1 and reexec >= 1, f"cluster-kill: {expiries} lease expiries and "
+          f"{reexec} re-executions in job_report.json")
+    # The victim dies before its first map task computes, so the survivor
+    # ran all of them: one scan launch per chunk of the corpus, on the card.
+    survivor = json.loads(
+        (logs / f"manifest-w{procs['survivor'].pid}.json").read_text())
+    platform = survivor["platform"]
+    launches = survivor["kernel_launches"]["tokenize_hash"]
+    chunks = _map_chunks(sorted(corpus.glob("*.txt")), Config.chunk_bytes)
+    check(platform.get("device_name") == torch.cuda.get_device_name(0),
+          f"cluster-kill: the survivor's manifest names no card: {platform}")
+    check(survivor["device_mem_high_bytes"] > 0,
+          "cluster-kill: the survivor allocated no device memory")
+    check(launches == chunks > 0, f"cluster-kill: the survivor launched tokenize_hash "
+          f"{launches} times for {chunks} map-task chunks")
+    out = {"phase": "cluster-kill", "exact": True, "map_engine": "device",
+           "wall_s": wall, "exit_codes": rcs, "expiries": expiries,
+           "re_executions": reexec, "survivor_launches": {"tokenize_hash": launches},
+           "chunks": chunks, "survivor_device": platform.get("device_name"),
+           "survivor_device_mem_high_bytes": survivor["device_mem_high_bytes"],
+           **fields}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1025,6 +1212,8 @@ def main() -> int:
         check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
         app_runs, ctx = phase_apps(work)
         spill_runs = phase_spill(work, corpus, truth, ctx)
+        cluster_run = phase_cluster(work, corpus, truth)
+        phase_cluster_kill(work, corpus, truth)
         phase_cli(work, text, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1039,6 +1228,7 @@ def main() -> int:
     for run in app_runs + spill_runs:
         check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
               f"{run['phase']}: tokenize_hash launches {run['launches']}")
+    runs.append(cluster_run)
     emit({"phase": "launches", "tokenize_hash": {
         run["phase"]: run["launches"]["tokenize_hash"] for run in runs
         if run["map_engine"] == "device"}, "chunks": {

@@ -1,6 +1,6 @@
-"""CLI entry points of the port — the ``run``, ``merge`` and ``clean``
-subcommands of ``python -m mapreduce_rust_tpu``, with the reference's
-flags for the fields this package implements:
+"""CLI entry points of the port — the ``run``, ``coordinator``, ``worker``,
+``merge`` and ``clean`` subcommands of ``python -m mapreduce_rust_tpu``,
+with the reference's flags for the fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
         [--app {word_count,inverted_index,grep,join,top_k,sort}]
@@ -10,15 +10,24 @@ flags for the fields this package implements:
          [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
         [--accum-budget-mb MB] [--dict-budget-words N] [--sync-spill]
     python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
+    python -m mapreduce_rust_tpu_torch coordinator --worker-n N [--port P]
+        [--speculate [--speculate-after-frac F]] [--metrics-port P] ...
+    python -m mapreduce_rust_tpu_torch worker [--engine {device,host}]
+        [--chaos SPEC] ...
     python -m mapreduce_rust_tpu_torch merge --output DIR [--app top_k --k K]
     python -m mapreduce_rust_tpu_torch clean --work DIR --output DIR
 
-``run`` needs a CUDA device unless ``--device cpu`` is given.
+Every command takes ``--trace PATH`` and ``--manifest PATH``; the
+coordinator and the workers suffix them per process. ``run`` and
+``worker`` map on the device engine by default and then need a CUDA device
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import dataclasses
 import glob
 import logging
 import os
@@ -47,6 +56,40 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="range apps (sort): tokens the seeded splitter "
                    "pre-pass samples per input file (default 512)")
     p.add_argument("--reduce-n", type=int, default=4)
+    p.add_argument("--chunk-mb", type=float, default=4.0)
+    p.add_argument("--device", default="cuda", choices=list(DEVICES))
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=1040)
+    p.add_argument("--lease-timeout", type=float, default=5.0,
+                   dest="lease_timeout",
+                   help="seconds before an unrenewed task lease expires and "
+                   "the task re-executes (coordinator + workers must agree)")
+    p.add_argument("--lease-check-period", type=float, default=5.0,
+                   dest="lease_check_period",
+                   help="coordinator lease-detector scan period (seconds)")
+    p.add_argument("--renew-period", type=float, default=1.0,
+                   dest="renew_period",
+                   help="worker lease-renewal period (seconds)")
+    p.add_argument("--poll-retry", type=float, default=1.0,
+                   dest="poll_retry",
+                   help="worker base sleep on the -2/-3 sentinels (seconds), "
+                   "backing off up to 4x")
+    p.add_argument("--sched", default="fifo", choices=["fifo", "pipeline"],
+                   help="fifo: a global map barrier; pipeline: reduce task r "
+                   "is granted once every map task reported bytes for "
+                   "partition r. Coordinator and workers must agree")
+    p.add_argument("--trace", default=None, metavar="PATH", dest="trace",
+                   help="write a Chrome trace-event JSON of the job (Perfetto "
+                   "/ chrome://tracing)")
+    p.add_argument("--manifest", default=None, metavar="PATH", dest="manifest",
+                   help="write the machine-readable run manifest (config, "
+                   "platform, git rev, JobStats, phase times, trace path)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="deterministic fault injection (analysis/chaos.py "
+                   "grammar), e.g. 'kill:map:*' or "
+                   "'seed=7;pause:map:0:2.0;kill:reduce:1'. Sites: pause, "
+                   "kill, drop_finish, delay_finish, wedge_renewal, "
+                   "slow_scan. MR_CHAOS in the environment overrides")
     p.add_argument("-v", "--verbose", action="store_true")
 
 
@@ -69,24 +112,60 @@ def _parse_inputs(args) -> tuple:
         _usage_error(args, e)
 
 
-def _cfg(args) -> Config:
+#: Config fields of the flags that only some subcommands define:
+#: field → (argparse dest, True where the flag negates the field). A
+#: subcommand without the flag leaves the field at Config's own default.
+_SUBCOMMAND_FIELDS = {
+    "merge_capacity": ("merge_capacity", False),
+    "partial_capacity": ("partial_capacity", False),
+    "map_engine": ("map_engine", False),
+    "host_map_workers": ("host_workers", False),
+    "fold_shards": ("fold_shards", False),
+    "dispatch_async": ("sync_dispatch", True),
+    "dispatch_coalesce": ("no_dispatch_coalesce", True),
+    "dispatch_fill_frac": ("dispatch_fill", False),
+    "host_accum_budget_mb": ("accum_budget_mb", False),
+    "dictionary_budget_words": ("dict_budget_words", False),
+    "spill_async": ("sync_spill", True),
+    "speculate": ("speculate", False),
+    "speculate_after_frac": ("speculate_after_frac", False),
+    "metrics_port": ("metrics_port", False),
+}
+
+
+def _cfg(args, worker_n: int = 1) -> Config:
+    """Config of a command's flags; the callers set ``map_n`` from the
+    resolved inputs."""
+    chaos = args.chaos
+    if chaos:
+        from mapreduce_rust_tpu_torch.analysis.chaos import ChaosPlan
+
+        try:
+            ChaosPlan.parse(chaos)  # a typo'd spec is a usage error
+        except ValueError as e:
+            _usage_error(args, e)
     input_dir, input_dirs = _parse_inputs(args)
+    present = {field: (not getattr(args, dest)) if negated else getattr(args, dest)
+               for field, (dest, negated) in _SUBCOMMAND_FIELDS.items()
+               if hasattr(args, dest)}
     return Config(
+        map_n=1,
         reduce_n=args.reduce_n,
+        worker_n=worker_n,
         split_samples=args.split_samples,
         chunk_bytes=int(args.chunk_mb * (1 << 20)),
-        merge_capacity=args.merge_capacity,
-        partial_capacity=args.partial_capacity,
         device=args.device,
-        map_engine=args.map_engine,
-        host_map_workers=args.host_workers,
-        fold_shards=args.fold_shards,
-        dispatch_async=not args.sync_dispatch,
-        dispatch_coalesce=not args.no_dispatch_coalesce,
-        dispatch_fill_frac=args.dispatch_fill,
-        host_accum_budget_mb=args.accum_budget_mb,
-        dictionary_budget_words=args.dict_budget_words,
-        spill_async=not args.sync_spill,
+        **present,
+        trace_path=args.trace,
+        manifest_path=args.manifest,
+        host=args.host,
+        port=args.port,
+        lease_timeout_s=args.lease_timeout,
+        lease_check_period_s=args.lease_check_period,
+        lease_renew_period_s=args.renew_period,
+        poll_retry_s=args.poll_retry,
+        sched=args.sched,
+        chaos=chaos,
         input_dir=input_dir,
         input_dirs=input_dirs,
         input_pattern=args.pattern,
@@ -112,13 +191,84 @@ def _app(args):
     return get_app(args.app)
 
 
+def _arm_crash_dump(args) -> None:
+    """CLI processes that trace also dump their flight-recorder snapshot on
+    atexit/SIGTERM — installed here (not in library code) so embedded use
+    and tests never have their signal handlers stolen."""
+    if args.trace:
+        from mapreduce_rust_tpu_torch.runtime.trace import install_crash_dump
+
+        install_crash_dump()
+
+
+def _arm_worker_drain(worker) -> None:
+    """SIGTERM = graceful drain for a CLI worker: finish the current task,
+    report it, deregister, exit 0 (the flight-recorder snapshot still
+    happens). A SECOND SIGTERM falls through to the default disposition.
+    Installed only by the CLI — embedded workers keep their own signal
+    handling."""
+    import signal
+
+    from mapreduce_rust_tpu_torch.runtime.trace import active_tracer
+
+    def _on_term(signum, frame):
+        tr = active_tracer()
+        if tr is not None:
+            try:
+                tr.maybe_snapshot(force=True)
+            except Exception:
+                pass  # draining must not die on a telemetry error
+        worker.request_drain()
+        signal.signal(signum, signal.SIG_DFL)
+
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+    except (ValueError, OSError):
+        pass  # not the main thread: drain stays reachable via request_drain()
+
+
 def cmd_run(args) -> int:
+    from mapreduce_rust_tpu_torch.runtime.chunker import resolve_corpora
     from mapreduce_rust_tpu_torch.runtime.driver import run_job
 
+    _arm_crash_dump(args)
     cfg = _cfg(args)
-    res = run_job(cfg, app=_app(args))
+    inputs, bounds, _names = resolve_corpora(cfg)
+    cfg = dataclasses.replace(cfg, map_n=max(len(inputs), 1))
+    res = run_job(cfg, inputs, app=_app(args), corpus_bounds=bounds)
     print(res.stats.summary())
     print(f"outputs: {', '.join(res.output_files)}")
+    return 0
+
+
+def cmd_coordinator(args) -> int:
+    from mapreduce_rust_tpu_torch.coordinator.server import Coordinator
+    from mapreduce_rust_tpu_torch.runtime.chunker import resolve_corpora
+
+    _arm_crash_dump(args)
+    cfg = _cfg(args, worker_n=args.worker_n)
+    inputs, _bounds, _names = resolve_corpora(cfg)
+    if not inputs:
+        dirs = ", ".join(d for _n, d in cfg.corpora())
+        print(f"no inputs matching {args.pattern} in {dirs}", file=sys.stderr)
+        return 2
+    cfg = dataclasses.replace(cfg, map_n=len(inputs))
+    asyncio.run(Coordinator(cfg).serve())
+    return 0
+
+
+def cmd_worker(args) -> int:
+    from mapreduce_rust_tpu_torch.runtime.chunker import resolve_corpora
+    from mapreduce_rust_tpu_torch.worker.runtime import Worker
+
+    _arm_crash_dump(args)
+    cfg = _cfg(args)
+    inputs, _bounds, _names = resolve_corpora(cfg)
+    # A worker against an empty dir registers and exits with the job.
+    cfg = dataclasses.replace(cfg, map_n=max(len(inputs), 1))
+    worker = Worker(cfg, app=_app(args), engine=args.engine)
+    _arm_worker_drain(worker)
+    asyncio.run(worker.run())
     return 0
 
 
@@ -161,13 +311,12 @@ def cmd_clean(args) -> int:
     return 0
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="mapreduce_rust_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("run", help="single-process end-to-end job (CUDA path)")
     _add_common(p)
-    p.add_argument("--chunk-mb", type=float, default=4.0)
     p.add_argument("--merge-capacity", type=int, default=Config.merge_capacity,
                    dest="merge_capacity", metavar="N",
                    help="distinct records the device state holds before it "
@@ -176,7 +325,6 @@ def main(argv: list[str] | None = None) -> int:
                    dest="partial_capacity", metavar="N",
                    help="per-chunk distinct keys before a chunk replays "
                    "full-width (default chunk bytes / 8); outputs identical")
-    p.add_argument("--device", default="cuda", choices=list(DEVICES))
     p.add_argument("--map-engine", default="device", choices=["device", "host"],
                    dest="map_engine",
                    help="device: tokenize/combine on the card; host: the fused "
@@ -194,7 +342,7 @@ def main(argv: list[str] | None = None) -> int:
                    dest="no_dispatch_coalesce",
                    help="host engine: every window dispatches its own merges")
     p.add_argument("--dispatch-fill", "--dispatch-fill-frac", type=float,
-                   default=0.5, dest="dispatch_fill",
+                   default=Config.dispatch_fill_frac, dest="dispatch_fill",
                    help="host engine: staging fill fraction that triggers a "
                    "coalesced merge (default 0.5)")
     p.add_argument("--accum-budget-mb", type=int, default=None,
@@ -211,6 +359,31 @@ def main(argv: list[str] | None = None) -> int:
                    "MR_SPILL_SYNC=1 does the same)")
     p.set_defaults(fn=cmd_run)
 
+    p = sub.add_parser("coordinator", help="control-plane scheduler")
+    _add_common(p)
+    p.add_argument("--worker-n", type=int, default=1, dest="worker_n")
+    p.add_argument("--metrics-port", type=int, default=Config.metrics_port,
+                   dest="metrics_port",
+                   help="serve Prometheus text exposition (GET /metrics) on "
+                   "this port; 0 (default) = off")
+    p.add_argument("--speculate", action="store_true",
+                   help="speculative re-execution: near phase end, re-issue "
+                   "the slowest in-flight task to an idle worker — first "
+                   "finish wins (outputs stay identical)")
+    p.add_argument("--speculate-after-frac", type=float,
+                   default=Config.speculate_after_frac,
+                   dest="speculate_after_frac",
+                   help="fraction of a phase's tasks done before speculation "
+                   "arms (default 0.75)")
+    p.set_defaults(fn=cmd_coordinator)
+
+    p = sub.add_parser("worker", help="pull-based worker process")
+    _add_common(p)
+    p.add_argument("--engine", default="device", choices=["device", "host"],
+                   help="device (default): the device engine, the CUDA scan "
+                   "kernel per chunk; host: the native scan maps each file")
+    p.set_defaults(fn=cmd_worker)
+
     p = sub.add_parser("merge", help="mr-*.txt → final.txt")
     _add_common(p)
     p.set_defaults(fn=cmd_merge)
@@ -218,7 +391,11 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("clean", help="remove intermediates and outputs")
     _add_common(p)
     p.set_defaults(fn=cmd_clean)
+    return parser
 
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
     args._parser = parser
     logging.basicConfig(

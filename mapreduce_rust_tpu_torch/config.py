@@ -1,8 +1,9 @@
 """Single config object for the PyTorch/CUDA port.
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
-single-device engines read (device engine and host-map engine, every app),
-with the reference's names and defaults — except ``device``, which
+single-device engines (device engine and host-map engine, every app), the
+coordinator/worker task path, tracing, the run manifest and the live
+metrics read, with the reference's names, defaults and validation — except ``device``, which
 defaults to ``"cuda"``: the port's entry points run on the card and raise
 without one, unless the caller asks for the CPU with ``device="cpu"``.
 
@@ -42,8 +43,6 @@ NOT_PORTED = {
     "sharded_stream": False,           # halo-exchange ingestion
     "checkpoint_every_groups": 0,      # mesh checkpoint
     "resume": False,
-    "trace_path": None,                # Chrome trace
-    "manifest_path": None,             # run manifest
     "profile_dir": None,               # device profiler trace
     "profile": False,                  # sampling profiler
     "lineage": False,                  # provenance ledger
@@ -54,7 +53,9 @@ DEVICES = ("auto", "cuda", "cpu")
 
 @dataclasses.dataclass
 class Config:
+    map_n: int = 6          # number of map tasks (one per input file)
     reduce_n: int = 4       # number of reduce partitions (mr-{r}.txt)
+    worker_n: int = 1       # the coordinator's registration barrier size
 
     # ---- Data plane ----
     chunk_bytes: int = 1 << 22      # bytes per map chunk fed to the device
@@ -113,13 +114,63 @@ class Config:
                                     # splitter pre-pass samples per input
                                     # file (runtime/splitter.py)
 
+    # ---- Observability ----
+    trace_path: Optional[str] = None  # write a Chrome trace-event JSON of
+                                    # the run's spans (runtime/trace.py);
+                                    # workers and the coordinator suffix it
+                                    # per process
+    manifest_path: Optional[str] = None  # write the machine-readable run
+                                    # manifest (runtime/telemetry.py), also
+                                    # when the run fails
+    flight_record_period_s: float = 5.0  # traced processes rewrite an
+                                    # atomic {trace}.partial.json at most
+                                    # this often, so a SIGKILLed worker's
+                                    # timeline survives
+    metrics_enabled: bool = True    # live metrics registry + time-series
+                                    # ring (runtime/metrics.py), sampled
+                                    # from the consumer/poll/renewal loops
+    metrics_sample_period_s: float = 1.0  # wall-clock bucket of one point
+    metrics_ring_points: int = 512  # ring capacity (oldest evicted)
+    metrics_port: int = 0           # coordinator only: Prometheus text
+                                    # exposition on this port; 0 = off
+    sanitize: bool = False          # opt-in thread-ownership sanitizer
+                                    # (analysis/sanitize.py); MR_SANITIZE=1
+                                    # turns it on for a process tree
+
+    # ---- Control plane (the Rust reference's timings) ----
+    host: str = "127.0.0.1"
+    port: int = 1040
+    lease_timeout_s: float = 5.0
+    lease_check_period_s: float = 5.0
+    lease_renew_period_s: float = 1.0
+    poll_retry_s: float = 1.0       # worker sleep on -2/-3, backing off
+    rpc_timeout_s: float = 15.0     # per-call deadline on worker →
+                                    # coordinator RPCs; a timeout raises
+                                    # RpcTimeout, never ConnectionError
+    sched: str = "fifo"             # "fifo": a strict map barrier;
+                                    # "pipeline": reduce task r is granted
+                                    # once every map task reported bytes
+                                    # for partition r (outputs identical)
+    speculate: bool = False         # re-issue the slowest in-flight task
+                                    # near phase end; first finish wins
+    speculate_after_frac: float = 0.75  # phase fraction done before it arms
+    speculate_slow_factor: float = 1.5  # ...and only attempts this many
+                                    # task p50s slow (once >= 3 samples)
+    speculate_max_attempts: int = 2  # concurrent attempts per task
+    chaos: Optional[str] = None     # deterministic fault-injection spec
+                                    # (analysis/chaos.py grammar, e.g.
+                                    # "kill:map:*"); MR_CHAOS overrides
+    rpc_backoff_base_s: float = 0.05  # first retry delay
+    rpc_backoff_cap_s: float = 2.0  # delay envelope cap
+    rpc_backoff_budget_s: float = 60.0  # total retry budget per operation
+    poll_retry_cap_s: Optional[float] = None  # sentinel-poll backoff cap;
+                                    # None = 4 × poll_retry_s
+
     # ---- Not ported (see NOT_PORTED) ----
     mesh_shape: Optional[int] = None
     sharded_stream: bool = False
     checkpoint_every_groups: int = 0
     resume: bool = False
-    trace_path: Optional[str] = None
-    manifest_path: Optional[str] = None
     profile_dir: Optional[str] = None
     profile: bool = False
     lineage: bool = False
@@ -143,8 +194,10 @@ class Config:
                     f"Config.{name}={getattr(self, name)!r}: not ported to the "
                     f"PyTorch/CUDA package yet (only {accepted!r})"
                 )
-        if self.reduce_n <= 0 or self.chunk_bytes <= 0:
-            raise ValueError("reduce_n and chunk_bytes must be positive")
+        if self.map_n <= 0 or self.reduce_n <= 0 or self.worker_n <= 0:
+            raise ValueError("map_n, reduce_n, worker_n must be positive")
+        if self.chunk_bytes <= 0:
+            raise ValueError("chunk_bytes must be positive")
         if self.device not in DEVICES:
             raise ValueError(f"unknown device {self.device!r}; have {DEVICES}")
         if self.merge_capacity < 1:
@@ -163,6 +216,33 @@ class Config:
             raise ValueError("dispatch_stage_cap must be >= 1 (or None)")
         if self.host_window_bytes < 1 or self.host_update_cap < 1:
             raise ValueError("host_window_bytes and host_update_cap must be >= 1")
+        if self.rpc_timeout_s <= 0:
+            raise ValueError("rpc_timeout_s must be positive")
+        if self.flight_record_period_s <= 0:
+            raise ValueError("flight_record_period_s must be positive")
+        if not 0.0 < self.speculate_after_frac <= 1.0:
+            raise ValueError("speculate_after_frac must be in (0, 1]")
+        if self.speculate_slow_factor < 1.0:
+            raise ValueError("speculate_slow_factor must be >= 1.0")
+        if self.speculate_max_attempts < 2:
+            raise ValueError(
+                "speculate_max_attempts must be >= 2 (the original plus at "
+                "least one speculative copy)"
+            )
+        if self.rpc_backoff_base_s <= 0 or self.rpc_backoff_cap_s <= 0 \
+                or self.rpc_backoff_budget_s <= 0:
+            raise ValueError("rpc_backoff_* must be positive")
+        if self.metrics_sample_period_s <= 0:
+            raise ValueError("metrics_sample_period_s must be positive")
+        if self.metrics_ring_points < 8:
+            raise ValueError("metrics_ring_points must be >= 8")
+        if self.metrics_port < 0:
+            raise ValueError("metrics_port must be >= 0 (0 = off)")
+        if self.poll_retry_cap_s is not None and self.poll_retry_cap_s <= 0:
+            raise ValueError("poll_retry_cap_s must be positive (or None)")
+        if self.sched not in ("fifo", "pipeline"):
+            raise ValueError(f"unknown sched {self.sched!r} "
+                             "(expected 'fifo' or 'pipeline')")
         if self.split_samples < 1:
             raise ValueError("split_samples must be >= 1")
         if self.input_dirs is not None:
@@ -181,6 +261,12 @@ class Config:
             if len(set(names)) != len(names):
                 raise ValueError(f"duplicate corpus names in {names}")
             self.input_dirs = dirs
+        if self.chaos:
+            # Fail at config time, not mid-task inside a worker: a typo'd
+            # fault spec is a loud error before any lease is granted.
+            from mapreduce_rust_tpu_torch.analysis.chaos import ChaosPlan
+
+            ChaosPlan.parse(self.chaos)
 
     def corpora(self) -> "tuple[tuple[str, str], ...]":
         """The job's ordered (name, dir) corpus list, multi-corpus or
@@ -188,6 +274,14 @@ class Config:
         if self.input_dirs is not None:
             return tuple(self.input_dirs)
         return (("corpus", self.input_dir),)
+
+    @property
+    def sched_pipeline(self) -> bool:
+        """True when the coordinator releases reduce tasks per partition."""
+        return self.sched == "pipeline"
+
+    def effective_poll_retry_cap_s(self) -> float:
+        return self.poll_retry_cap_s or 4.0 * self.poll_retry_s
 
     def effective_partial_capacity(self) -> int:
         """The per-chunk distinct-key capacity of the map step."""

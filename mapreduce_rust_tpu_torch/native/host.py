@@ -216,11 +216,31 @@ def arena_count() -> int:
         return len(_arena_sizes)
 
 
+_sanitize_cached: "bool | None" = None
+
+
+def _sanitizing() -> bool:
+    """MR_SANITIZE resolved once per process — _buffers is per-scan hot."""
+    global _sanitize_cached
+    if _sanitize_cached is None:
+        from mapreduce_rust_tpu_torch.analysis.sanitize import sanitize_enabled
+
+        _sanitize_cached = sanitize_enabled()
+    return _sanitize_cached
+
+
 def _buffers(n: int, max_words: int):
     """Per-thread reusable scratch (allocating ~10 MB of numpy buffers per
     call costs ~40% of the scan; results are copied out before the next
     call on the same thread can overwrite them)."""
     bufs = getattr(_scratch, "bufs", None)
+    if bufs is not None and _sanitizing():
+        # Thread-locals survive os.fork(): a child reusing the parent's
+        # arena would read another process's scan state. The sanitizer
+        # turns that silent aliasing into a raise.
+        from mapreduce_rust_tpu_torch.analysis.sanitize import check_arena_owner
+
+        check_arena_owner(*_scratch.owner)
     if bufs is None or bufs[0].size < n + 1 or bufs[1].size < max_words:
         words = max(max_words, 1 << 18)
         bufs = (
@@ -237,6 +257,7 @@ def _buffers(n: int, max_words: int):
             _arena_sizes[key] = sum(int(b.nbytes) for b in bufs)
         weakref.finalize(bufs[0], _arena_release, key)
         _scratch.bufs = bufs
+        _scratch.owner = (os.getpid(), threading.get_ident())
     return bufs
 
 

@@ -20,7 +20,8 @@ look-back, see the source's header):
   ops over :func:`hash_scan_reference`.
 
 Each wrapper launches the kernel on a CUDA tensor and counts the launch in
-its ``launches`` attribute; on a CPU tensor it returns its plain version.
+its ``launches`` attribute (under a lock: several workers of one process
+launch from their own threads); on a CPU tensor it returns its plain version.
 Any other input raises; nothing falls back. The CPU path and the tests use
 the plain versions; on the card they are only the kernel's check.
 
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -48,6 +50,9 @@ BYTES_PER_INPUT_BYTE = 13
 FUSED_BYTES_PER_INPUT_BYTE = 14
 #: Bytes one block of the kernel scans (checked against the library).
 TILE_BYTES = 4096
+
+
+_count_lock = threading.Lock()
 
 
 def _i32(x) -> int:
@@ -124,8 +129,18 @@ def tokenize_hash_reference(chunk: torch.Tensor, last_is_boundary: bool = True):
             valid.to(torch.int32), valid)
 
 
-@functools.lru_cache(maxsize=None)
+_lib_lock = threading.Lock()
+
+
 def _lib() -> ctypes.CDLL:
+    """The kernel library, built and checked once per process (the lock
+    keeps concurrent first launches from building it twice)."""
+    with _lib_lock:
+        return _load_lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.mr_hash_scan.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
     lib.mr_hash_scan.restype = ctypes.c_int
@@ -180,7 +195,8 @@ def hash_scan(chunk: torch.Tensor):
     if not _on_card("hash_scan", chunk):
         return hash_scan_reference(chunk)
     outs = _launch("hash_scan", chunk, (torch.int32,) * 3)
-    hash_scan.launches += 1
+    with _count_lock:
+        hash_scan.launches += 1
     return outs
 
 
@@ -195,7 +211,8 @@ def tokenize_hash(chunk: torch.Tensor, last_is_boundary: bool = True):
         return tokenize_hash_reference(chunk, last_is_boundary)
     outs = _launch("tokenize_hash", chunk, (torch.int32,) * 3 + (torch.bool,),
                    int(bool(last_is_boundary)))
-    tokenize_hash.launches += 1
+    with _count_lock:
+        tokenize_hash.launches += 1
     return outs
 
 

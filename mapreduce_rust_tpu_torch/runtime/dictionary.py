@@ -1,9 +1,9 @@
 """Host-side hash→word dictionary — the egress join table.
 
-The port of ``mapreduce_rust_tpu/runtime/dictionary.py`` (its RAM tier
-and its disk word tier; ``save``/``load``/``merge`` come with the worker
-slice). The device computes on hash pairs only; to print words at
-egress, every chunk's distinct words are hashed on the host during ingest
+The port of ``mapreduce_rust_tpu/runtime/dictionary.py``: its RAM tier,
+its disk word tier, and the ``save``/``load``/``merge`` persistence of the
+worker's dictionary shards. The device computes on hash pairs only; to
+print words at egress, every chunk's distinct words are hashed on the host during ingest
 with the same two polynomial lanes (core/hashing.py), so the
 ``hash pair → word`` join is exact. A new word landing on an existing
 pair is a collision: counted, and the first word wins.
@@ -210,9 +210,14 @@ class Dictionary:
         token = self._run_token
 
         def task() -> int:
-            keys, ends, buf = spill_io.pack_word_map(snapshot)
-            return spill_io.write_run_file(path, token, keys, ends, buf,
-                                           run_index=run_index)
+            from mapreduce_rust_tpu_torch.runtime.trace import trace_span
+
+            with trace_span("dictionary.flush", words=len(snapshot),
+                            run=run_index):
+                keys, ends, buf = spill_io.pack_word_map(snapshot)
+                return spill_io.write_run_file(
+                    path, token, keys, ends, buf, run_index=run_index
+                )
 
         self._ensure_writer().submit(task)
 
@@ -442,6 +447,147 @@ class Dictionary:
         self._sorted_lens = ln[order]
         self._fresh_keys.clear()
         self._fresh_lens.clear()
+
+    def merge(self, other: "Dictionary") -> None:
+        if other.spilled:
+            raise ValueError("cannot merge a disk-spilled dictionary")
+        self.collisions.extend(other.collisions)
+        for key, w in other._word_of.items():
+            packed = (key[0] << 32) | key[1]
+            if self._stored_len(packed) is None:
+                self._word_of[key] = w
+                self._seen.add(w)
+                self._len_of[packed] = len(w)
+                self._fresh_keys.append(packed)
+                self._fresh_lens.append(len(w))
+                self._total_words += 1
+            else:
+                prev = self._word_of.get(key)
+                if prev is not None and prev != w:
+                    self.collisions.append((prev, w))
+        self._maybe_flush()
+
+    # ---- persistence (the multi-process control-plane path: map tasks
+    # write dictionary shards next to their spilled partials, reduce tasks
+    # merge them — the analog of the Rust reference's mr-{m}-{r}.txt files) --
+
+    def save(self, path: str | os.PathLike) -> None:
+        """One binary container (the runtime/spill run format + a
+        collision section): the tiers merge into a single globally sorted
+        key column, and the word bytes STREAM to disk per merge block in
+        a second pass — a spilled dictionary saves in O(keys + block)
+        memory, never rehydrated into a Python dict (the bounded-memory
+        contract that made it spill in the first place). ``load`` sniffs
+        the magic, so pre-binary text saves (the 'k1 k2 word' /
+        '! kept rejected' line format) still load."""
+        sources = self.run_sources()  # drains the writer
+        # Pass 1: ONE k-way merge; the key/length columns plus the
+        # (src, idx) streams are retained (~28 B/key — small next to the
+        # word bytes, which never materialize whole). The header needs
+        # the totals up front, so the word bytes stream in pass 2 from
+        # the retained blocks without re-running the merge.
+        key_parts: list[np.ndarray] = []
+        len_parts: list[np.ndarray] = []
+        blocks: list[tuple] = []
+        for keys, src, idx in spill_io.merge_sources(sources):
+            key_parts.append(keys)
+            blocks.append((src, idx))
+            lens = np.empty(len(keys), dtype=np.int64)
+            for s in np.unique(src).tolist():
+                sel = np.nonzero(src == s)[0]
+                ends_arr = sources[s].ends
+                ii = idx[sel]
+                lens[sel] = ends_arr[ii] - np.where(
+                    ii > 0, ends_arr[ii - 1], 0
+                )
+            len_parts.append(lens)
+        if key_parts:
+            all_keys = np.ascontiguousarray(
+                np.concatenate(key_parts), dtype="<u8")
+            all_lens = np.concatenate(len_parts)
+        else:
+            all_keys = np.empty(0, dtype="<u8")
+            all_lens = np.empty(0, dtype=np.int64)
+        lens_b = spill_io.encode_varints(all_lens)
+        with open(path, "wb") as f:
+            f.write(spill_io.pack_header_for_save(
+                self._run_token, len(all_keys), len(lens_b),
+                len(self.collisions),
+            ))
+            f.write(all_keys.tobytes())
+            f.write(lens_b)
+            # Pass 2: word bytes, one joined buffer per retained block.
+            for src, idx in blocks:
+                f.write(b"".join(
+                    spill_io.slice_block_words(sources, src, idx)
+                ))
+            for kept, rejected in self.collisions:
+                f.write(spill_io.encode_varints(
+                    np.asarray([len(kept)], dtype=np.uint64)))
+                f.write(kept)
+                f.write(spill_io.encode_varints(
+                    np.asarray([len(rejected)], dtype=np.uint64)))
+                f.write(rejected)
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "Dictionary":
+        """Version-sniffing load: the binary magic
+        selects the columnar parse; anything else takes the legacy text
+        parse, so dictionaries saved by the text plane still load. An
+        unknown BINARY schema version fails loudly in read_run_header —
+        the migration exit path, never a silent misparse."""
+        with open(path, "rb") as f:
+            head = f.read(4)
+        if head == spill_io.RUN_MAGIC:
+            return cls._load_binary(path)
+        return cls._load_text(path)
+
+    @classmethod
+    def _load_binary(cls, path) -> "Dictionary":
+        d = cls()
+        src = spill_io.read_run_file(str(path))
+        d.collisions.extend(src.collisions)
+        keys = src.keys
+        ends = src.ends.tolist()
+        data = src.data
+        data_b = data if isinstance(data, bytes) else bytes(
+            memoryview(data))
+        start = 0
+        for packed, end in zip(keys.tolist(), ends):
+            w = data_b[start:end]
+            start = end
+            k1, k2 = packed >> 32, packed & 0xFFFFFFFF
+            if (k1, k2) not in d._word_of:
+                d._total_words += 1
+            d._insert_loaded(k1, k2, packed, w)
+        return d
+
+    @classmethod
+    def _load_text(cls, path) -> "Dictionary":
+        d = cls()
+        with open(path, "rb") as f:
+            for line in f:
+                if line.startswith(b"! "):
+                    _, kept, rejected = line.rstrip(b"\n").split(b" ", 2)
+                    d.collisions.append((kept, rejected))
+                    continue
+                a, b, w = line.rstrip(b"\n").split(b" ", 2)
+                k1, k2 = int(a), int(b)
+                if (k1, k2) not in d._word_of:
+                    d._total_words += 1
+                d._insert_loaded(k1, k2, (k1 << 32) | k2, w)
+        return d
+
+    def _insert_loaded(self, k1: int, k2: int, packed: int, w: bytes) -> None:
+        self._word_of[(k1, k2)] = w
+        self._seen.add(w)
+        if packed not in self._len_of:
+            self._len_of[packed] = len(w)
+            # Every insert path must feed the vectorized tiers:
+            # add_scanned_raw's membership is (merged | fresh), so a
+            # loaded key that skipped them would be re-insertable.
+            self._fresh_keys.append(packed)
+            self._fresh_lens.append(len(w))
 
 
 class ShardedDictionary:

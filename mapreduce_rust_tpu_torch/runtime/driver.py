@@ -37,6 +37,11 @@ updates across windows and merges them into the same device state with
 
 At egress the final table joins the hash→word dictionary and the app
 formats its partitions, written as ``mr-{r}.txt``.
+
+Observability is the reference's: the same ``trace_span`` names at the
+same places (``Config.trace_path``), the live metrics registry ticked from
+the consumer loops, the flight recorder, and a run manifest
+(``Config.manifest_path``) written even when the job fails.
 """
 
 from __future__ import annotations
@@ -89,8 +94,23 @@ from mapreduce_rust_tpu_torch.runtime.dictionary import (
     remove_run_files,
 )
 from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
-from mapreduce_rust_tpu_torch.runtime.metrics import JobStats, log
+from mapreduce_rust_tpu_torch.runtime.metrics import (
+    JobStats,
+    jobstats_collector,
+    log,
+    metrics_tick,
+    start_metrics,
+    stop_metrics,
+)
 from mapreduce_rust_tpu_torch.runtime.splitter import prepare_app
+from mapreduce_rust_tpu_torch.runtime.trace import (
+    maybe_snapshot,
+    partial_path,
+    start_tracing,
+    stop_tracing,
+    trace_counter,
+    trace_span,
+)
 
 
 def select_device(kind: str = "cuda") -> torch.device:
@@ -106,6 +126,40 @@ def select_device(kind: str = "cuda") -> torch.device:
             "run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+_MEM_SAMPLE_PERIOD_S = 0.5
+_mem_last_sample = [0.0]
+_mem_lock = threading.Lock()
+
+
+def _sample_device_memory(stats) -> None:
+    """Device-memory gauge, fed from the existing drain loops (never per
+    record): the high water of ``torch.cuda.max_memory_allocated`` into
+    ``stats.device_mem_high_bytes``, plus a throttled Chrome "C" counter
+    sample per device when tracing. Only where CUDA is ALREADY
+    initialized: a telemetry gauge must never be what creates a device
+    context (the coordinator, a host-engine worker). The throttle is
+    process state shared by every job of the process, so it holds a lock
+    and gates only the counter track; each caller's own high water is
+    always read."""
+    try:
+        if not torch.cuda.is_initialized():
+            return
+        n = torch.cuda.device_count()
+        high = max(int(torch.cuda.max_memory_allocated(i)) for i in range(n))
+        if high > stats.device_mem_high_bytes:
+            stats.device_mem_high_bytes = high
+        now = time.monotonic()
+        with _mem_lock:
+            if now - _mem_last_sample[0] < _MEM_SAMPLE_PERIOD_S:
+                return
+            _mem_last_sample[0] = now
+        for i in range(n):
+            trace_counter(f"device.mem.d{i}",
+                          bytes_in_use=int(torch.cuda.memory_allocated(i)))
+    except Exception:  # a telemetry probe must never fail the run
+        pass
 
 
 def make_step_fns(app: App, u_cap: int):
@@ -271,8 +325,9 @@ class HostAccumulator:
         op = self.op
 
         def task() -> int:
-            rows = _combine_pending(op, keys, vals)
-            written = spill_io.write_npy_run(path, rows, run_index=run_index)
+            with trace_span("accumulator.flush_run", run=run_index):
+                rows = _combine_pending(op, keys, vals)
+                written = spill_io.write_npy_run(path, rows, run_index=run_index)
             log.info("host accumulator: spilled run %d (%d rows)", run_index + 1, len(rows))
             return written
 
@@ -292,6 +347,11 @@ class HostAccumulator:
 
     def spill_stats(self) -> dict:
         return spill_io.tier_spill_stats(self._writer, len(self._runs))
+
+    def spill_snapshot(self) -> "tuple[float, float, int] | None":
+        """(write_s, stall_s, bytes) right now, or None if never spilled —
+        benign-stale reads for the live metrics ring."""
+        return spill_io.tier_spill_snapshot(self._writer)
 
     def remove_runs(self) -> None:
         """Job-end cleanup of this accumulator's run files. Closes the
@@ -408,11 +468,11 @@ class _IngestStream:
     """Shared ingest: a prefetch thread runs read→normalize→chunk ahead of
     the consumer (bounded queue), and a thread pool runs the dictionary
     scans; scan results fold into the Dictionary only on the consumer
-    thread. doc_id = position in inputs (the flat listing of every
-    corpus)."""
+    thread. doc_id = doc_id_offset + position in inputs (the flat listing
+    of every corpus; a worker's map task passes its task id)."""
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
-                 dictionary: Dictionary, host_mask) -> None:
+                 dictionary: Dictionary, host_mask, doc_id_offset: int = 0) -> None:
         self.cfg = cfg
         self.stats = stats
         self.dictionary = dictionary
@@ -427,7 +487,8 @@ class _IngestStream:
         self.err: BaseException | None = None
         self._stop = False
         self._thread = threading.Thread(
-            target=self._produce, args=(list(inputs),), name="mr/ingest", daemon=True
+            target=self._produce, args=(list(inputs), doc_id_offset),
+            name="mr/ingest", daemon=True
         )
         self._thread.start()
 
@@ -440,12 +501,14 @@ class _IngestStream:
                 if self._stop:
                     return False
 
-    def _produce(self, inputs) -> None:
+    def _produce(self, inputs, doc_id_offset) -> None:
         # This thread owns bytes_in/chunks/forced_cuts; the consumer owns
-        # every other stats field.
+        # every other stats field. Under the sanitizer it must say so.
         stats = self.stats
+        stats.register_writer()
         try:
-            for doc, path in enumerate(inputs):
+            for i, path in enumerate(inputs):
+                doc = doc_id_offset + i
                 stats.bytes_in += os.path.getsize(path)
                 with open(path, "rb") as f:
                     for chunk in chunk_stream(f, doc, self.cfg.chunk_bytes):
@@ -472,8 +535,11 @@ class _IngestStream:
     def __iter__(self):
         while True:
             t0 = time.perf_counter()
-            chunk = self.q.get()
-            self.stats.ingest_wait_s += time.perf_counter() - t0
+            with trace_span("ingest.wait"):
+                chunk = self.q.get()
+            dt = time.perf_counter() - t0
+            self.stats.ingest_wait_s += dt
+            self.stats.record_hist("ingest.wait_s", dt)
             if chunk is _END:
                 if self.err is not None:
                     raise self.err
@@ -484,6 +550,8 @@ class _IngestStream:
             # Backpressure: each pending future pins a chunk-sized payload;
             # fold the oldest (blocking) once the backlog exceeds the pool.
             self._fold_done(block=len(self.scans) > 2 * self.workers + 4)
+            maybe_snapshot()  # flight-recorder tick: per chunk, off-hot-path
+            metrics_tick()    # live-metrics sampler, same piggyback contract
             yield chunk
 
     def close(self, abort: bool = False) -> None:
@@ -519,7 +587,13 @@ def _to_device(data: np.ndarray, device: torch.device) -> tuple[torch.Tensor, to
 
 def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
                    acc: HostAccumulator, dictionary: Dictionary,
-                   device: torch.device) -> None:
+                   doc_id_offset: int = 0,
+                   device: "torch.device | None" = None) -> None:
+    """The device engine over ``inputs``; doc ids start at
+    ``doc_id_offset`` (a worker's map task streams one file, its task id).
+    The device comes from ``cfg.device`` unless the caller resolved it."""
+    if device is None:
+        device = select_device(cfg.device)
     u_cap = cfg.effective_partial_capacity()
     depth = max(cfg.pipeline_depth, 1)
     map_combine, merge = make_step_fns(app, u_cap)
@@ -543,11 +617,12 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
         stats.partial_overflow_replays += 1
         if slow_fns is None:
             slow_fns = make_step_fns(app, cfg.chunk_bytes)
-        update, _ = slow_fns[0](chunk_host.to(device, non_blocking=True), doc_id)
-        state, evicted, ev_count = slow_fns[1](state, update)
-        ev_n = int(ev_count)
-        if ev_n > 0:
-            spill(evicted, ev_n)
+        with trace_span("chunk.replay"):
+            update, _ = slow_fns[0](chunk_host.to(device, non_blocking=True), doc_id)
+            state, evicted, ev_count = slow_fns[1](state, update)
+            ev_n = int(ev_count)
+            if ev_n > 0:
+                spill(evicted, ev_n)
 
     def drain(n: int) -> None:
         # Resolve the oldest n steps with ONE device→host copy of all their
@@ -556,27 +631,34 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
             return
         batch = [pending.popleft() for _ in range(n)]
         t0 = time.perf_counter()
-        flat = torch.stack([x for (ovf, evc, *_rest) in batch for x in (ovf, evc)])
-        counts = flat.cpu().tolist()
-        stats.device_wait_s += time.perf_counter() - t0
+        with trace_span("device.drain", steps=n):
+            flat = torch.stack([x for (ovf, evc, *_rest) in batch for x in (ovf, evc)])
+            counts = flat.cpu().tolist()
+        dt = time.perf_counter() - t0
+        stats.device_wait_s += dt
+        stats.record_hist("device.drain_s", dt)
+        _sample_device_memory(stats)
         for (_ovf, _evc, evicted, chunk_host, doc_id), ovf_n, ev_n in zip(
             batch, counts[::2], counts[1::2]
         ):
             if ev_n > 0:
-                spill(evicted, ev_n)
+                with trace_span("spill", keys=int(ev_n)):
+                    spill(evicted, ev_n)
             if ovf_n > 0:
                 replay_chunk(chunk_host, doc_id)
 
-    ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask)
+    ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask,
+                           doc_id_offset)
     try:
         for chunk in ingest:
-            chunk_host, chunk_dev = _to_device(chunk.data, device)
-            update, ovf = map_combine(chunk_dev, chunk.doc_id)
-            # Merge dispatches immediately — an overflowed update is empty
-            # on the device, so merging before the flag reaches the host is
-            # safe.
-            state, evicted, ev_count = merge(state, update)
-            pending.append((ovf, ev_count, evicted, chunk_host, chunk.doc_id))
+            with trace_span("chunk.dispatch"):
+                chunk_host, chunk_dev = _to_device(chunk.data, device)
+                update, ovf = map_combine(chunk_dev, chunk.doc_id)
+                # Merge dispatches immediately — an overflowed update is
+                # empty on the device, so merging before the flag reaches
+                # the host is safe.
+                state, evicted, ev_count = merge(state, update)
+                pending.append((ovf, ev_count, evicted, chunk_host, chunk.doc_id))
             # Keep one window in flight while draining the previous one.
             if len(pending) >= 2 * depth:
                 drain(depth)
@@ -704,6 +786,45 @@ def _coalesce_updates_py(a_keys, a_vals, m, b_keys, b_vals):
     return ks[idx], np.add.reduceat(vs, idx)
 
 
+# ---------------------------------------------------------------------------
+# slow_dispatch chaos checkpoint — the spill plane's slow_disk pattern:
+# seeded per-merge-dispatch delay, MR_CHAOS only (the env form rides a
+# whole process tree), cached per spec string.
+# ---------------------------------------------------------------------------
+
+_dispatch_chaos_cache: dict = {}
+
+
+def _chaos_slow_dispatch(dispatch_index: int) -> None:
+    """The ``slow_dispatch`` injection checkpoint: ONE site in the dispatch
+    plane (fires per merge dispatch, so ``p=`` samples by dispatch index
+    and reruns delay the same dispatches). The async plane hides the delay
+    on the dispatch thread; the sync plane eats it on the router's wall."""
+    spec = os.environ.get("MR_CHAOS")
+    if not spec:
+        return
+    plan = _dispatch_chaos_cache.get(spec)
+    if plan is None:
+        try:
+            from mapreduce_rust_tpu_torch.analysis.chaos import ChaosPlan
+
+            plan = ChaosPlan.parse(spec)
+        except Exception:
+            plan = False  # a bad ambient spec must not fail dispatches
+        _dispatch_chaos_cache[spec] = plan
+    if not plan:
+        return
+    f = plan.pick("slow_dispatch", tid=dispatch_index)
+    if f is not None and f.seconds > 0:
+        time.sleep(f.seconds)
+
+
+def dispatch_chaos_fired(spec: str) -> list:
+    """Fired slow_dispatch events for ``spec`` (test/bench introspection)."""
+    plan = _dispatch_chaos_cache.get(spec)
+    return plan.fired() if plan else []
+
+
 class _DispatchPlane:
     """The device-merge dispatch plane: scan-order scatter-back, update
     pack, host→device copy and the packed merge, on ONE dedicated
@@ -740,6 +861,7 @@ class _DispatchPlane:
                  device: torch.device) -> None:
         self.app = app
         self.acc = acc
+        self.stats = stats
         self.device = device
         self.cap = cfg.host_update_cap
         self.depth = max(cfg.pipeline_depth, 1)
@@ -766,11 +888,14 @@ class _DispatchPlane:
         # publishes copies per window and collect() writes the finals.
         self.dispatch_s = 0.0        # thread seconds in scatter/pack/copy/merge
         self.stall_s = 0.0           # router blocked on a full queue + join
+        self.idle_s = 0.0            # thread seconds waiting for windows
         self.device_wait_s = 0.0
         self.spill_events = 0
         self.spilled_keys = 0
         self.merge_dispatches = 0
         self.records_shipped = 0
+        self.submit_hist = Histogram()   # per-dispatch pack+copy+merge seconds
+        self.drain_hist = Histogram()    # per-drain blocking readback
         self.error: "BaseException | None" = None
         self.poisoned = threading.Event()
         self._finished = False
@@ -788,6 +913,10 @@ class _DispatchPlane:
     # ---- dispatch thread ----
 
     def _loop(self) -> None:
+        # Sanitizer registration: this thread writes device_mem_high_bytes
+        # (via _sample_device_memory); every other tally is plane-local
+        # until collect().
+        self.stats.register_writer()
         q = self._q
         saw_sentinel = False
         try:
@@ -796,7 +925,9 @@ class _DispatchPlane:
                 # it must run on the job's card, whatever the default.
                 torch.cuda.set_device(self.device)
             while True:
+                t0 = time.perf_counter()
                 item = q.get()
+                self.idle_s += time.perf_counter() - t0
                 if item is self._SENTINEL:
                     saw_sentinel = True
                     if not self.poisoned.is_set():
@@ -820,31 +951,33 @@ class _DispatchPlane:
         filtering app's mask, stamp values, then coalesce or dispatch."""
         doc_id, kind, keys, counts, pos, mask = item
         t0 = time.perf_counter()
-        if kind == "sharded":
-            # Grouped scan result: scatter keys/counts (and the mask,
-            # computed on grouped rows) back to EXACT scan order so the
-            # merge stream matches the unsharded engine's.
-            keys_d = np.empty_like(keys)
-            keys_d[pos] = keys
-            counts_d = np.empty_like(counts)
-            counts_d[pos] = counts
-            if mask is not None:
-                mask_d = np.empty(len(pos), dtype=bool)
-                mask_d[pos] = mask
-                keys_d, counts_d = keys_d[mask_d], counts_d[mask_d]
-            keys, counts = keys_d, counts_d
-        elif mask is not None:
-            keys, counts = keys[mask], counts[mask]
-        values = self.app.host_values(counts, doc_id)
-        if self.coalesce:
-            self._coalesce_window(keys, values)
-        else:
-            # Scan order, split at cap.
-            cap = self.cap
-            for start in range(0, len(keys), cap):
-                ks = keys[start: start + cap]
-                self._dispatch(ks[:, 0], ks[:, 1],
-                               np.asarray(values[start: start + cap], dtype=np.uint32))
+        with trace_span("dispatch.window", doc=doc_id, n=len(keys)):
+            if kind == "sharded":
+                # Grouped scan result: scatter keys/counts (and the mask,
+                # computed on grouped rows) back to EXACT scan order so
+                # the merge stream matches the unsharded engine's.
+                keys_d = np.empty_like(keys)
+                keys_d[pos] = keys
+                counts_d = np.empty_like(counts)
+                counts_d[pos] = counts
+                if mask is not None:
+                    mask_d = np.empty(len(pos), dtype=bool)
+                    mask_d[pos] = mask
+                    keys_d, counts_d = keys_d[mask_d], counts_d[mask_d]
+                keys, counts = keys_d, counts_d
+            elif mask is not None:
+                keys, counts = keys[mask], counts[mask]
+            values = self.app.host_values(counts, doc_id)
+            if self.coalesce:
+                self._coalesce_window(keys, values)
+            else:
+                # Scan order, split at cap.
+                cap = self.cap
+                for start in range(0, len(keys), cap):
+                    ks = keys[start: start + cap]
+                    self._dispatch(ks[:, 0], ks[:, 1],
+                                   np.asarray(values[start: start + cap],
+                                              dtype=np.uint32))
         self.dispatch_s += time.perf_counter() - t0
 
     def _coalesce_window(self, keys: np.ndarray, values) -> None:
@@ -899,13 +1032,17 @@ class _DispatchPlane:
         )
 
     def _dispatch(self, k1: np.ndarray, k2: np.ndarray, vals: np.ndarray) -> None:
+        t0 = time.perf_counter()
+        _chaos_slow_dispatch(self.merge_dispatches)
         self._stager.pack(k1, k2, vals)
-        self.state, evicted, ev_count = self.merge_packed(
-            self.state, self._stager.to_device()
-        )
+        with trace_span("dispatch.submit", n=len(k1)):
+            self.state, evicted, ev_count = self.merge_packed(
+                self.state, self._stager.to_device()
+            )
         self.pending.append((ev_count, evicted))
         self.merge_dispatches += 1
         self.records_shipped += len(k1)
+        self.submit_hist.add(time.perf_counter() - t0)
         if len(self.pending) >= 2 * self.depth:
             self._drain(self.depth)
 
@@ -916,13 +1053,18 @@ class _DispatchPlane:
             return
         batch = [self.pending.popleft() for _ in range(n)]
         t0 = time.perf_counter()
-        counts = torch.stack([ev for ev, _ in batch]).cpu().tolist()
-        self.device_wait_s += time.perf_counter() - t0
+        with trace_span("device.drain", steps=n):
+            counts = torch.stack([ev for ev, _ in batch]).cpu().tolist()
+        dt = time.perf_counter() - t0
+        self.device_wait_s += dt
+        self.drain_hist.add(dt)
+        _sample_device_memory(self.stats)
         for (_ev, evicted), ev_n in zip(batch, counts):
             if ev_n > 0:
                 self.spill_events += 1
                 self.spilled_keys += ev_n
-                self.acc.add_batch(evicted)
+                with trace_span("spill", keys=int(ev_n)):
+                    self.acc.add_batch(evicted)
 
     def _finalize(self) -> None:
         """End of stream: flush staging, resolve every pending merge. After
@@ -953,14 +1095,15 @@ class _DispatchPlane:
             pass
         t0 = time.perf_counter()
         try:
-            while True:
-                if self.poisoned.is_set():
-                    self._raise_error()
-                try:
-                    self._q.put(item, timeout=0.05)
-                    return
-                except queue.Full:
-                    continue
+            with trace_span("host_map.dispatch_stall"):
+                while True:
+                    if self.poisoned.is_set():
+                        self._raise_error()
+                    try:
+                        self._q.put(item, timeout=0.05)
+                        return
+                    except queue.Full:
+                        continue
         finally:
             self.stall_s += time.perf_counter() - t0
 
@@ -1006,10 +1149,10 @@ class _DispatchPlane:
             return 0.0
         return self.records_shipped / (self.merge_dispatches * self.cap)
 
-    def collect(self, stats: JobStats) -> None:
-        """Write the plane's tallies into JobStats. Router thread only;
-        called with the dispatch thread finished or reaped (its counters
-        are plain cells written by that thread alone)."""
+    def publish_live(self, stats: JobStats) -> None:
+        """Per-window live publication (router thread): the plane's cells
+        are benign-stale at worst, so the live ring sees a dispatch-bound
+        job DURING the run. collect() writes the exact finals."""
         stats.dispatch_s = self.dispatch_s
         stats.dispatch_stall_s = self.stall_s
         stats.merge_dispatches = self.merge_dispatches
@@ -1017,6 +1160,16 @@ class _DispatchPlane:
         stats.device_wait_s = self.device_wait_s
         stats.spill_events = self.spill_events
         stats.spilled_keys = self.spilled_keys
+
+    def collect(self, stats: JobStats) -> None:
+        """Write the plane's tallies into JobStats. Router thread only;
+        called with the dispatch thread finished or reaped (its counters
+        are plain cells written by that thread alone)."""
+        self.publish_live(stats)
+        for name, h in (("dispatch.submit_s", self.submit_hist),
+                        ("device.drain_s", self.drain_hist)):
+            if h.count:
+                stats.hists.setdefault(name, Histogram()).merge(h)
 
 
 class _FoldShardPlane:
@@ -1037,9 +1190,13 @@ class _FoldShardPlane:
 
     _SENTINEL = object()
 
-    def __init__(self, shards) -> None:
+    def __init__(self, cfg: Config, stats: JobStats, shards) -> None:
+        from mapreduce_rust_tpu_torch.analysis.sanitize import sanitize_enabled
+
         self.n = len(shards)
+        self.stats = stats
         self.shards = shards
+        self._sanitize = sanitize_enabled(cfg)
         # Bounded per-shard queues: each entry pins one window's grouped
         # scan arrays (shared read-only across shards), so fold memory is
         # O(depth × window result), never O(corpus).
@@ -1047,6 +1204,8 @@ class _FoldShardPlane:
         self.errors: list = [None] * self.n
         self.poisoned = threading.Event()
         self.fold_s = [0.0] * self.n
+        self.idle_s = [0.0] * self.n  # per-shard seconds waiting for work
+        self.hists = [Histogram() for _ in range(self.n)]
         self.stall_s = 0.0  # router side: blocked puts + end-of-stream join
         self._finished = False
         self.threads = [
@@ -1061,17 +1220,37 @@ class _FoldShardPlane:
 
     def _loop(self, s: int) -> None:
         shard = self.shards[s]
+        # Sanitizer registration: this thread becomes the shard
+        # dictionary's owner and a registered stats writer — no-ops
+        # unsanitized, asserts armed under MR_SANITIZE=1.
+        self.stats.register_writer()
+        set_owner = getattr(shard, "set_owner", None)
+        if set_owner is not None:
+            set_owner()
         q = self.queues[s]
         try:
             while True:
+                t0 = time.perf_counter()
                 item = q.get()
+                self.idle_s[s] += time.perf_counter() - t0
                 if item is self._SENTINEL:
                     return
                 if self.poisoned.is_set():
                     continue  # another shard failed: drain, don't fold
                 t0 = time.perf_counter()
-                self._fold_one(shard, item)
-                self.fold_s[s] += time.perf_counter() - t0
+                if self._sanitize:
+                    # Every key routed here must route to this shard.
+                    from mapreduce_rust_tpu_torch.analysis.sanitize import (
+                        check_shard_route,
+                    )
+
+                    _raw, _ends, keys, lo, hi, _mask = item
+                    check_shard_route(keys[lo:hi], self.n, s)
+                with trace_span("host_map.fold", shard=s):
+                    self._fold_one(shard, item)
+                dt = time.perf_counter() - t0
+                self.fold_s[s] += dt
+                self.hists[s].add(dt)
         except BaseException as e:
             self.errors[s] = e
             self.poisoned.set()
@@ -1109,14 +1288,15 @@ class _FoldShardPlane:
         # Blocked = fold backpressure, timed apart from glue.
         t0 = time.perf_counter()
         try:
-            while True:
-                if self.poisoned.is_set():
-                    self._raise_error()
-                try:
-                    q.put(item, timeout=0.05)
-                    return
-                except queue.Full:
-                    continue
+            with trace_span("host_map.fold_stall", shard=s):
+                while True:
+                    if self.poisoned.is_set():
+                        self._raise_error()
+                    try:
+                        q.put(item, timeout=0.05)
+                        return
+                    except queue.Full:
+                        continue
         finally:
             self.stall_s += time.perf_counter() - t0
 
@@ -1166,8 +1346,16 @@ class _FoldShardPlane:
             t.join(timeout=10)
 
     def collect(self, stats: JobStats) -> None:
+        """Per-thread tallies into JobStats — router thread only, after
+        finish/abort joined the threads."""
         stats.fold_s = sum(self.fold_s)
         stats.fold_stall_s = self.stall_s
+        stats.fold_shard_s = [round(v, 6) for v in self.fold_s]
+        stats.fold_shard_idle_s = [round(v, 6) for v in self.idle_s]
+        agg = stats.hists.setdefault("host_map.fold_s", Histogram())
+        for h in self.hists:
+            if h.count:
+                agg.merge(h)
 
 
 _CUT_PROBE = 1 << 16  # how far back a window cut searches for whitespace
@@ -1253,30 +1441,33 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
         # abandoned scan (exception teardown) cannot touch stats.
         doc_id, window = item
         t0 = time.perf_counter()
-        if fold is not None:
-            out = (doc_id, "raw_sharded", scan_count_sharded_raw(window, fold.n))
-        else:
-            out = (doc_id, "raw", scan_count_raw(window))
+        with trace_span("host_map.scan", doc=doc_id, bytes=int(window.size)):
+            if fold is not None:
+                out = (doc_id, "raw_sharded", scan_count_sharded_raw(window, fold.n))
+            else:
+                out = (doc_id, "raw", scan_count_raw(window))
         return (*out, time.perf_counter() - t0)
 
     def consume(result) -> None:
         doc_id, kind, res, scan_s = result
         stats.host_map_s += scan_s  # summed over workers
+        stats.record_hist("host_map.scan_s", scan_s)
         t_glue = time.perf_counter()
         stall0 = fold.stall_s if fold is not None else 0.0
         dstall0 = dispatch.stall_s
         dwait0 = dispatch.device_wait_s
-        stats.chunks += 1
-        if kind == "raw_sharded":
-            raw, ends, keys, counts, pos, shard_counts = res
-            mask = app.host_mask(keys)  # grouped rows; per-row exact
-            fold.route_raw(raw, ends, keys, shard_counts, mask)
-            dispatch.submit((doc_id, "sharded", keys, counts, pos, mask))
-        else:
-            raw, ends, keys, counts = res
-            mask = app.host_mask(keys)
-            fold_scan_into_dictionary(dictionary, mask, "raw", (raw, ends, keys))
-            dispatch.submit((doc_id, "flat", keys, counts, None, mask))
+        with trace_span("host_glue"):
+            stats.chunks += 1
+            if kind == "raw_sharded":
+                raw, ends, keys, counts, pos, shard_counts = res
+                mask = app.host_mask(keys)  # grouped rows; per-row exact
+                fold.route_raw(raw, ends, keys, shard_counts, mask)
+                dispatch.submit((doc_id, "sharded", keys, counts, pos, mask))
+            else:
+                raw, ends, keys, counts = res
+                mask = app.host_mask(keys)
+                fold_scan_into_dictionary(dictionary, mask, "raw", (raw, ends, keys))
+                dispatch.submit((doc_id, "flat", keys, counts, None, mask))
         # Glue is the router's own work: time blocked on full shard or
         # dispatch queues is backpressure (fold_stall_s, dispatch_stall_s).
         # In sync mode the inline dispatch is glue, less its blocking
@@ -1289,6 +1480,18 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
         else:
             glue_dt = max(glue_dt - (dispatch.stall_s - dstall0), 0.0)
         stats.host_glue_s += glue_dt
+        stats.record_hist("host_map.glue_s", glue_dt)
+        # Running totals of the off-router planes, published per window
+        # (benign-stale reads of their cells) so the live ring names a
+        # fold-, dispatch- or spill-bound job during the run; collect()
+        # writes the exact finals at teardown.
+        if fold is not None:
+            stats.fold_s = sum(fold.fold_s)
+            stats.fold_stall_s = fold.stall_s
+        dispatch.publish_live(stats)
+        _publish_spill_live(stats, dictionary, acc)
+        maybe_snapshot()  # flight-recorder tick: per window, router thread
+        metrics_tick()    # live-metrics sampler, same piggyback contract
 
     inflight: collections.deque = collections.deque()
     budget = 2 * workers + 2
@@ -1296,8 +1499,13 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
     def next_result():
         fut = inflight.popleft()
         t0 = time.perf_counter()
-        res = fut.result()
-        stats.scan_wait_s += time.perf_counter() - t0
+        with trace_span("host_map.stall"):
+            res = fut.result()
+        dt = time.perf_counter() - t0
+        stats.scan_wait_s += dt
+        stats.record_hist("host_map.stall_s", dt)
+        trace_counter("host_map.inflight", scans=len(inflight),
+                      merges=len(dispatch.pending))  # benign-stale len read
         return res
 
     pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="mr/scan")
@@ -1305,7 +1513,7 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
         # Started HERE: everything that can raise during setup is behind
         # us, and the very next statement is the try that owns teardown.
         try:
-            fold = _FoldShardPlane(dictionary.shards)
+            fold = _FoldShardPlane(cfg, stats, dictionary.shards)
         except BaseException:
             dispatch.abort()
             pool.shutdown(wait=True, cancel_futures=True)
@@ -1378,7 +1586,15 @@ def run_job(
         # an empty table.
         raise ValueError("egress budgets require write_outputs=True")
 
-    stats = JobStats()
+    # Sanitize-aware construction (analysis/sanitize.py): plain instances
+    # unless Config.sanitize / MR_SANITIZE=1, in which case cross-thread
+    # writes to stats or dictionary raise at the write site.
+    from mapreduce_rust_tpu_torch.analysis.sanitize import (
+        new_dictionary,
+        new_job_stats,
+    )
+
+    stats = new_job_stats(cfg)
     # Bind corpus bounds and, for range apps, sampled splitters onto the
     # app before anything streams (reference driver.py:2916-2922): a join
     # with one corpus fails here, and every engine routes identically.
@@ -1401,20 +1617,41 @@ def run_job(
         per_shard = (max(1, cfg.dictionary_budget_words // fold_shards)
                      if cfg.dictionary_budget_words is not None else None)
         dictionary = ShardedDictionary([
-            Dictionary(budget_words=per_shard, spill_dir=cfg.work_dir,
-                       async_spill=cfg.spill_async)
+            new_dictionary(cfg, budget_words=per_shard, spill_dir=cfg.work_dir,
+                           async_spill=cfg.spill_async)
             for _ in range(fold_shards)
         ])
     else:
-        dictionary = Dictionary(budget_words=cfg.dictionary_budget_words,
-                                spill_dir=cfg.work_dir, async_spill=cfg.spill_async)
+        dictionary = new_dictionary(
+            cfg, budget_words=cfg.dictionary_budget_words,
+            spill_dir=cfg.work_dir, async_spill=cfg.spill_async)
+    tracer = start_tracing(tag="driver") if cfg.trace_path else None
+    if tracer is not None:
+        # Flight recorder: the stream loops tick maybe_snapshot() per
+        # chunk/window, so a killed driver still leaves an atomic
+        # *.partial.json that trace merge accepts.
+        tracer.enable_flight_recorder(partial_path(cfg.trace_path),
+                                      period_s=cfg.flight_record_period_s)
+    # Live metrics: the registry pulls JobStats aggregates into its ring
+    # when the loops that tick the flight recorder call metrics_tick();
+    # build_manifest serializes it as stats.timeseries.
+    registry = None
+    if cfg.metrics_enabled:
+        registry = start_metrics(cfg.metrics_sample_period_s,
+                                 cfg.metrics_ring_points)
+        registry.add_collector(jobstats_collector(stats))
+        if tracer is not None:
+            tracer.metrics_registry = registry  # partials keep the series
+    table: dict = {}
+    output_files: list[str] = []
 
     try:
         with stats.phase("stream"):
             if cfg.map_engine == "host":
                 _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
             else:
-                _stream_single(cfg, app, inputs, stats, acc, dictionary, device)
+                _stream_single(cfg, app, inputs, stats, acc, dictionary,
+                               device=device)
 
         spilled = acc.has_runs or dictionary.spilled
         streaming = spilled and type(app).finalize is App.finalize
@@ -1431,6 +1668,10 @@ def run_job(
         stats.wall_seconds = time.perf_counter() - t0
         log.info("job %s done: %s", app.name, stats.summary())
     finally:
+        # A failed run still gets its real wall time: its manifest is
+        # written too, and a 0.0 s crashed run would corrupt comparisons.
+        if not stats.wall_seconds:
+            stats.wall_seconds = time.perf_counter() - t0
         # Run files are job-scoped scratch: their counts survive in the
         # stats as the proof the disk tiers engaged. remove_runs joins
         # every writer, so the collection below reads final counters.
@@ -1439,6 +1680,28 @@ def run_job(
         acc.remove_runs()
         dictionary.remove_runs()
         _collect_spill_stats(stats, dictionary, acc)
+        if tracer is not None:
+            stop_tracing()
+        if tracer is not None or cfg.manifest_path:
+            # Written even on failure (with an "error" field): a crashed
+            # run's manifest names what ran. Best-effort — telemetry must
+            # never mask the job's real exception.
+            import sys as _sys
+
+            from mapreduce_rust_tpu_torch.runtime.telemetry import (
+                flush_run_artifacts,
+            )
+
+            exc = _sys.exc_info()[1]
+            flush_run_artifacts(
+                cfg, tracer, logger=log, stats=stats, app_name=app.name,
+                inputs=inputs, output_files=output_files,
+                extra={"error": repr(exc)} if exc is not None else None,
+            )
+        if registry is not None:
+            # After the flush (build_manifest read the still-active ring);
+            # compare-and-clear, a co-hosted worker may own the slot now.
+            stop_metrics(registry)
     return JobResult(stats=stats, table=table, output_files=output_files)
 
 
@@ -1588,6 +1851,28 @@ def _stream_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulato
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
     return output_files
+
+
+def _publish_spill_live(stats: JobStats, dictionary, acc) -> None:
+    """Per-window live publication of the running spill totals (router
+    thread): the writers' float cells are benign-stale at worst, so the
+    live ring sees a spill-bound job during the run. Exact finals land in
+    _collect_spill_stats at teardown."""
+    total_w = total_st = 0.0
+    total_b = 0
+    seen = False
+    for tier in (dictionary, acc):
+        snap = tier.spill_snapshot()
+        if snap is None:
+            continue
+        seen = True
+        total_w += snap[0]
+        total_st += snap[1]
+        total_b += snap[2]
+    if seen:
+        stats.spill_s = total_w
+        stats.spill_stall_s = total_st
+        stats.spill_bytes = total_b
 
 
 def _collect_spill_stats(stats: JobStats, dictionary, acc: HostAccumulator) -> None:

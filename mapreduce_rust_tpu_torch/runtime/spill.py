@@ -186,6 +186,13 @@ def _pack_header(token: str, n: int, lens_bytes: int, n_collisions: int) -> byte
     return head.tobytes()
 
 
+def pack_header_for_save(token: str, n: int, lens_bytes: int,
+                         n_collisions: int) -> bytes:
+    """The container header for streaming writers (Dictionary.save pipes
+    the sections itself so word bytes never materialize whole)."""
+    return _pack_header(token, n, lens_bytes, n_collisions)
+
+
 def write_run_container(f, token: str, keys, ends, buf: bytes,
                         collisions=()) -> int:
     """Write one run/save container to an open binary file; returns bytes
@@ -215,7 +222,9 @@ def write_run_container(f, token: str, keys, ends, buf: bytes,
 def write_run_file(path: str, token: str, keys, ends, buf: bytes,
                    run_index: int = 0, collisions=()) -> int:
     """Atomic (tmp + rename) run write — the writer-thread task body.
-    Returns bytes written."""
+    Returns bytes written. The seeded ``slow_disk`` chaos site fires here:
+    one injection point covers every spill tier."""
+    _chaos_slow_disk(run_index)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         written = write_run_container(f, token, keys, ends, buf, collisions)
@@ -225,7 +234,9 @@ def write_run_file(path: str, token: str, keys, ends, buf: bytes,
 
 def write_npy_run(path: str, rows: np.ndarray, run_index: int = 0) -> int:
     """Atomic accumulator-run write (sorted deduped [n,3] rows, .npy) —
-    the accumulator writer's task body. Returns bytes written."""
+    the accumulator writer's task body, behind the same chaos site.
+    Returns bytes written."""
+    _chaos_slow_disk(run_index)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.save(f, rows)
@@ -563,6 +574,43 @@ def tier_spill_stats(writer: "AsyncSpillWriter | None", runs: int) -> dict:
 
 def tier_spill_snapshot(writer: "AsyncSpillWriter | None"):
     return None if writer is None else writer.snapshot()
+
+
+# ---------------------------------------------------------------------------
+# Chaos: seeded per-spill write delay (slow_disk)
+# ---------------------------------------------------------------------------
+
+_chaos_cache: dict = {}
+
+
+def _chaos_slow_disk(run_index: int) -> None:
+    """The ``slow_disk`` injection checkpoint: one site covers every spill
+    tier (dictionary runs, accumulator runs, shard or not). Seeded p=
+    sampling keys on the run index, so reruns delay the same runs. Cached
+    per spec string — tests flip MR_CHAOS between jobs."""
+    spec = os.environ.get("MR_CHAOS")
+    if not spec:
+        return
+    plan = _chaos_cache.get(spec)
+    if plan is None:
+        try:
+            from mapreduce_rust_tpu_torch.analysis.chaos import ChaosPlan
+
+            plan = ChaosPlan.parse(spec)
+        except Exception:
+            plan = False  # a bad ambient spec must not fail spill writes
+        _chaos_cache[spec] = plan
+    if not plan:
+        return
+    f = plan.pick("slow_disk", tid=run_index)
+    if f is not None and f.seconds > 0:
+        time.sleep(f.seconds)
+
+
+def chaos_fired(spec: str) -> list:
+    """Fired slow_disk events for ``spec`` (test/bench introspection)."""
+    plan = _chaos_cache.get(spec)
+    return plan.fired() if plan else []
 
 
 # ---------------------------------------------------------------------------

@@ -212,6 +212,29 @@ for engine in ("device", "host"):
                          map_engine=engine), app=get_app("sort"))
     lines = b"".join(open(p, "rb").read() for p in res.output_files).split()
     assert lines == sorted([b"hello"] * 3 + [b"world", "café".encode()]), lines
+# The task path and the observability core: a one-worker cluster on the
+# device engine, traced, with a manifest.
+import asyncio
+import socket
+import mapreduce_rust_tpu_torch.analysis.doctor
+import mapreduce_rust_tpu_torch.runtime.perfetto
+from mapreduce_rust_tpu_torch.coordinator.server import Coordinator
+from mapreduce_rust_tpu_torch.worker.runtime import Worker
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+cfg = Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1], map_n=2,
+             reduce_n=2, worker_n=1, port=port, work_dir=sys.argv[2] + "/cw",
+             output_dir=sys.argv[2] + "/co", poll_retry_s=0.05,
+             trace_path=sys.argv[2] + "/t.json", manifest_path=sys.argv[2] + "/m.json")
+async def cluster():
+    serve = asyncio.create_task(Coordinator(cfg).serve())
+    await asyncio.sleep(0.1)
+    await asyncio.wait_for(Worker(cfg, engine="device").run(), 60)
+    await asyncio.wait_for(serve, 30)
+asyncio.run(cluster())
+lines = b"".join(open(f"{sys.argv[2]}/co/mr-{r}.txt", "rb").read() for r in range(2))
+assert sorted(lines.splitlines()) == ["café 1".encode(), b"hello 3", b"world 1"], lines
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
