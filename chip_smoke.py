@@ -86,20 +86,44 @@ one JSON line; any failure raises and ends the run:
               chunk, every mr-{m}-{r}.npz and dict-{m}-{r}.txt shard
               present, no spill run left; wall, the map and reduce task
               durations from job_report.json and peak device memory;
-    cluster-kill — the same job through the CLI in subprocesses
-              (``coordinator --worker-n 2`` and two ``worker --engine
-              device``), one worker with ``--chaos 'kill:map:*'``: it
+    cluster-kill — word_count through the CLI in subprocesses on
+              documents 0-1 of zipf-ii-256M (64 MiB in 2 files: map_n 2,
+              reduce_n 8; a cut from zipf-256M that keeps the script near
+              half its time limit) with ``coordinator --worker-n 2`` and
+              two ``worker --engine device``, one worker with ``--chaos
+              'kill:map:*'``: it
               SIGKILLs itself on its first map task while holding the
               lease; outputs exact, job_report.json shows a lease expiry
               and a re-execution, the victim died by SIGKILL and the
               survivor exited 0; every process has a timeout;
-13. cli     — a few-MB unicode/punctuation corpus through
+13. service — the multi-tenant job service in this process: a port
+              JobService.serve() (service_max_jobs 3, in-flight budget
+              1024 MiB) and two ServiceWorker(engine="device") as asyncio
+              tasks; three jobs at once — word_count on zipf-256M
+              (reduce_n 8), inverted_index on zipf-ii-256M and grep on its
+              documents 0-3 with the grep phase's query — each exact
+              against its truth, no re-execution, tokenize_hash launched
+              once per map-task chunk of the three jobs; then the
+              word_count spec again, served from the result cache with
+              zero new grants and no launch; wall, each job's queue wait
+              and execution seconds, peak device memory;
+14. cli     — a few-MB unicode/punctuation corpus through
               ``python -m mapreduce_rust_tpu_torch run``, once per engine,
               checked against the port's reference_word_counts; then
               ``--app grep --query ...`` and ``--app join --input a=DIR
               b=DIR`` on it, against oracles from reference_word_counts
               per file; then a budgeted run (``--accum-budget-mb 0
-              --dict-budget-words 4096``) and ``clean``.
+              --dict-budget-words 4096``) and ``clean``;
+15. service-drain — the service through the CLI in subprocesses on that
+              corpus: ``service --max-jobs 1``, two word_count jobs
+              submitted (one queues), SIGTERM while it is queued, then two
+              ``worker --service --engine device``: the service finishes
+              the running job and exits 0, the workers exit 0; a restarted
+              service and fleet complete the queued job from
+              service.journal. Both exact against reference_word_counts;
+              every worker that launched the kernel names the card and
+              has device memory in its manifest, and each fleet launched
+              tokenize_hash once per chunk; every child has a timeout.
 
 Every job phase checks unknown_keys == 0 and hash_collisions == 0 and
 that no spill run file is left in its work dir, and prints its wall,
@@ -162,6 +186,11 @@ SPILL_FIELDS = ("accum_spill_runs", "dict_spill_runs", "spill_s", "spill_stall_s
 #: (PERF.md §5: chip_smoke.py main phase, NVIDIA H100 80GB HBM3, 700 W).
 HOST_MS_PER_CHUNK_PYTHON_SCAN = (672, 1539)
 SLICE_BYTES = 4 << 20
+#: The grep cell's query (documents 0-3 of zipf-ii-256M): five ranks and
+#: one word outside the vocabulary.
+GREP_RANKS = (0, 7, 1000, 100_000, 2_000_000)
+GREP_ABSENT = b"nothere"
+GREP_QUERY = tuple("w%06x" % r for r in GREP_RANKS) + (GREP_ABSENT.decode(),)
 
 
 def emit(obj) -> None:
@@ -929,12 +958,9 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     runs.append(drive_job("ii-host", work, ii_check(presence), app=get_app("inverted_index"),
                           corpus=ii_dir, map_engine="host", merge_capacity=1 << 18,
                           host_window_bytes=16 << 20))
-    ranks = (0, 7, 1000, 100_000, 2_000_000)
-    absent = b"nothere"
     runs.append(drive_job(
-        "grep", work, grep_check(presence[:, :4], ranks, absent),
-        app=get_app("grep", query=tuple("w%06x" % r for r in ranks) + (absent.decode(),)),
-        corpus=work / "left"))
+        "grep", work, grep_check(presence[:, :4], GREP_RANKS, GREP_ABSENT),
+        app=get_app("grep", query=GREP_QUERY), corpus=work / "left"))
     runs.append(drive_job(
         "join", work, join_check(presence, 4), app=get_app("join"), map_engine="host",
         input_dirs=(("a", str(work / "left")), ("b", str(work / "right")))))
@@ -952,7 +978,8 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
         runs.append(drive_job(name, work, sort_check(truth), app=get_app("sort"),
                               corpus=sort_dir, map_engine=engine))
     return runs, {"ii_dir": ii_dir, "presence": presence, "counts01": counts01,
-                  "top_dir": work / "top", "sort_dir": sort_dir, "sort_truth": truth}
+                  "top_dir": work / "top", "left_dir": work / "left", "sort_dir": sort_dir,
+                  "sort_truth": truth}
 
 
 def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
@@ -1163,6 +1190,293 @@ def phase_cluster_kill(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
     return out
 
 
+def _job_totals(work_dir: pathlib.Path, jid: str) -> dict:
+    report = json.loads((work_dir / f"job-{jid}" / "job_report.json").read_text())["report"]
+    return {ph: {k: t[k] for k in ("completed", "expiries", "re_executions", "late_reports")}
+            for ph, t in report["totals"].items()}
+
+
+def phase_service(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> dict:
+    """The multi-tenant job service in this process: a port JobService.serve()
+    and two ServiceWorker(engine="device") as asyncio tasks, three jobs at
+    once (word_count on zipf-256M, inverted_index on zipf-ii-256M, grep on
+    its documents 0-3), each exact against its generator's truth; then the
+    word_count spec again, which the result cache must serve with zero new
+    grants."""
+    import asyncio
+    import types
+
+    import torch
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.coordinator.server import CoordinatorClient
+    from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
+    from mapreduce_rust_tpu_torch.service.server import JobService
+    from mapreduce_rust_tpu_torch.worker.runtime import ServiceWorker
+
+    out_dir, work_dir = work / "service-out", work / "service-work"
+    cfg = Config(port=_free_port(), service_max_jobs=3, service_inflight_budget_mb=1024,
+                 input_dir=str(corpus), output_dir=str(out_dir), work_dir=str(work_dir))
+    presence = ctx["presence"]
+    jobs = {
+        "word_count": ({"app": "word_count", "input_dir": str(corpus), "reduce_n": 8},
+                       lambda files: {"output_lines": check_zipf_outputs(files, truth)}),
+        "inverted_index": ({"app": "inverted_index", "input_dir": str(ctx["ii_dir"]),
+                            "reduce_n": 8},
+                           lambda files: ii_check(presence)(
+                               types.SimpleNamespace(output_files=files))),
+        "grep": ({"app": "grep", "input_dir": str(ctx["left_dir"]), "reduce_n": 8,
+                  "app_args": {"query": list(GREP_QUERY)}},
+                 lambda files: grep_check(presence[:, :4], GREP_RANKS, GREP_ABSENT)(
+                     types.SimpleNamespace(output_files=files))),
+    }
+    svc = JobService(cfg)
+    seen: dict = {}
+
+    async def drive():
+        serve = asyncio.create_task(svc.serve())
+        await asyncio.sleep(0.2)
+        client = CoordinatorClient(cfg.host, cfg.port, timeout_s=30.0)
+        await client.connect()
+        t0 = time.perf_counter()
+        jids = {}
+        for name, (spec, _check) in jobs.items():
+            res = await client.call("submit_job", spec)
+            check(res.get("ok") and res["state"] == "running",
+                  f"service: {name} was not admitted at once: {res}")
+            jids[name] = res["job"]
+        workers = [asyncio.create_task(ServiceWorker(cfg, engine="device").run())
+                   for _ in range(2)]
+        deadline = time.perf_counter() + 600
+        while True:
+            states = {j["job"]: j["state"] for j in (await client.call("list_jobs"))["jobs"]}
+            if all(states.get(jid) == "done" for jid in jids.values()):
+                break
+            bad = {jid: st for jid, st in states.items() if st in ("failed", "cancelled")}
+            check(not bad, f"service: jobs ended {bad}")
+            for w in workers:
+                if w.done():
+                    w.result()  # a worker that died raises its error here
+                    check(False, "service: a worker exited before the jobs were done")
+            check(time.perf_counter() < deadline, f"service: jobs not done in 600 s: {states}")
+            await asyncio.sleep(0.25)
+        seen["wall_s"] = time.perf_counter() - t0
+        seen["launches"] = {"hash_scan": hash_scan.launches,
+                            "tokenize_hash": tokenize_hash.launches}
+        seen["status"] = {name: await client.call("job_status", jid)
+                          for name, jid in jids.items()}
+        before = (await client.call("list_jobs"))["service"]
+        repeat = await client.call("submit_job", jobs["word_count"][0])
+        seen["repeat"] = repeat
+        seen["repeat_status"] = await client.call("job_status", repeat.get("job"))
+        seen["after"] = (await client.call("list_jobs"))["service"]
+        seen["before"] = before
+        seen["launches_after_repeat"] = tokenize_hash.launches
+        seen["jids"] = jids
+        await client.call("shutdown")
+        await client.close()
+        await asyncio.wait_for(asyncio.gather(*workers), timeout=120)
+        await asyncio.wait_for(serve, timeout=60)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hash_scan.launches = tokenize_hash.launches = 0
+    asyncio.run(drive())
+    peak = torch.cuda.max_memory_allocated()
+    launches, jids = seen["launches"], seen["jids"]
+    per_job = {}
+    chunks = 0
+    for name, (spec, check_files) in jobs.items():
+        jid = jids[name]
+        files = [str(out_dir / f"job-{jid}" / f"mr-{r}.txt") for r in range(spec["reduce_n"])]
+        fields = check_files(files)
+        totals = _job_totals(work_dir, jid)
+        reexec = sum(t["re_executions"] for t in totals.values())
+        check(reexec == 0, f"service: {name} re-executed {reexec} tasks without a fault")
+        inputs = sorted(pathlib.Path(spec["input_dir"]).glob("*.txt"))
+        check(totals["map"]["completed"] == len(inputs),
+              f"service: {name} completed {totals['map']['completed']} map tasks")
+        job_chunks = _map_chunks(inputs, cfg.chunk_bytes)
+        chunks += job_chunks
+        st = seen["status"][name]
+        per_job[name] = {"job": jid, "exact": True, "queue_wait_s": st["queue_wait_s"],
+                         "exec_s": st.get("run_s"), "map_tasks": len(inputs),
+                         "chunks": job_chunks, "grants": seen["before"]["tenants"][jid]["grants"],
+                         "totals": totals, **fields}
+    check(launches["tokenize_hash"] == chunks > 0, f"service: tokenize_hash launched "
+          f"{launches['tokenize_hash']} times for {chunks} map-task chunks")
+    repeat, rst = seen["repeat"], seen["repeat_status"]
+    check(repeat.get("ok") and repeat.get("cached") is True and repeat["state"] == "done",
+          f"service: the repeated word_count was not served from the cache: {repeat}")
+    grants_before = sum(t["grants"] for t in seen["before"]["tenants"].values())
+    grants_after = sum(t["grants"] for t in seen["after"]["tenants"].values())
+    check(grants_after == grants_before and rst.get("totals") is None
+          and seen["after"]["tenants"][repeat["job"]]["grants"] == 0,
+          f"service: the cached repeat was granted tasks ({grants_before} → {grants_after})")
+    check(seen["launches_after_repeat"] == launches["tokenize_hash"],
+          "service: the cached repeat launched the scan kernel")
+    check(rst["outputs"] == sorted(str(out_dir / f"job-{jids['word_count']}" / f"mr-{r}.txt")
+                                   for r in range(8)),
+          f"service: the cache served other outputs: {rst.get('outputs')}")
+    out = {"phase": "service", "exact": True, "map_engine": "device", "workers": 2,
+           "max_jobs": cfg.service_max_jobs,
+           "inflight_budget_mb": cfg.service_inflight_budget_mb, "wall_s": seen["wall_s"],
+           "launches": launches, "chunks": chunks, "device_mem_peak_bytes": peak,
+           "jobs": per_job, "repeat": {"job": repeat["job"], "cached": True,
+                                       "new_grants": grants_after - grants_before},
+           "cache": seen["after"]["cache"], "fleet_util": seen["after"]["fleet_util"]}
+    emit(out)
+    return out
+
+
+def phase_service_drain(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> dict:
+    """The job service through the CLI in subprocesses: ``service
+    --max-jobs 1``, two word_count jobs submitted (one queues), SIGTERM
+    while the second is queued, two ``worker --service --engine device``:
+    the service finishes the first job and exits 0; a restarted service
+    and fleet complete the second from the service journal. Both exact
+    against reference_word_counts; each worker that launched the kernel
+    names the card in its manifest."""
+    import signal
+
+    import torch
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
+
+    want: dict = {}
+    for blob in blobs:
+        for w, c in reference_word_counts(blob).items():
+            want[w.encode()] = want.get(w.encode(), 0) + c
+    root = work / "drain"
+    logs = root / "logs"
+    logs.mkdir(parents=True)
+    cli = [sys.executable, "-m", "mapreduce_rust_tpu_torch"]
+    procs: dict = {}
+    t0 = time.perf_counter()
+
+    def common(port: int) -> list:
+        return ["--input", str(corpus), "--output", str(root / "out"),
+                "--work", str(root / "work"), "--port", str(port)]
+
+    def start(name: str, cmd: list) -> None:
+        with open(logs / f"{name}.log", "wb") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+    def run(args: list, what: str) -> str:
+        r = subprocess.run([*cli, *args], cwd=ROOT, capture_output=True, text=True,
+                           timeout=120)
+        check(r.returncode == 0, f"service-drain: {what} exited {r.returncode}:\n"
+              f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        return r.stdout
+
+    def jobs_view(port: int) -> dict:
+        return json.loads(run(["jobs", "--port", str(port), "--json",
+                               "--connect-retries", "50"], "jobs"))
+
+    def wait_all(names, timeout: float) -> dict:
+        rcs = {}
+        for name in names:
+            try:
+                rcs[name] = procs[name].wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                rcs[name] = None
+        return rcs
+
+    def tails() -> str:
+        return "".join(f"--- {p.name}:\n"
+                       + p.read_bytes()[-2000:].decode(errors="replace")
+                       for p in sorted(logs.glob("*.log")))
+
+    def kill_all() -> None:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    try:
+        port = _free_port()
+        start("service-1", [*cli, "service", *common(port), "--max-jobs", "1"])
+        submitted = [json.loads(run(["submit", *common(port), "--reduce-n", str(n),
+                                     "--connect-retries", "50"], "submit").splitlines()[0])
+                     for n in (4, 3)]
+        j1, j2 = (r["job"] for r in submitted)
+        states = {j["job"]: j["state"] for j in jobs_view(port)["jobs"]}
+        check(states == {j1: "running", j2: "queued"}, f"service-drain: before SIGTERM {states}")
+        procs["service-1"].send_signal(signal.SIGTERM)
+        view = jobs_view(port)
+        check(view["service"]["draining"] and view["service"]["queued"] == 1,
+              f"service-drain: after SIGTERM {view['service']}")
+        for i in range(2):
+            start(f"worker-1{i}", [*cli, "worker", "--service", "--engine", "device",
+                                   "--manifest", str(logs / "manifest-1.json"), *common(port)])
+        rcs1 = wait_all(["service-1", "worker-10", "worker-11"], 600)
+        check(rcs1 == {"service-1": 0, "worker-10": 0, "worker-11": 0},
+              f"service-drain: first incarnation exited {rcs1}\n{tails()}")
+        drained_s = time.perf_counter() - t0
+        check(not (root / "out" / f"job-{j2}").exists(),
+              "service-drain: the queued job ran during the drain")
+
+        port = _free_port()
+        start("service-2", [*cli, "service", *common(port)])
+        for i in range(2):
+            start(f"worker-2{i}", [*cli, "worker", "--service", "--engine", "device",
+                                   "--manifest", str(logs / "manifest-2.json"), *common(port)])
+        deadline = time.perf_counter() + 600
+        while True:
+            states = {j["job"]: j["state"] for j in jobs_view(port)["jobs"]}
+            if states.get(j2) == "done":
+                break
+            check(states.get(j2) in ("queued", "running"), f"service-drain: {states}")
+            check(time.perf_counter() < deadline, f"service-drain: {j2} not done: {states}")
+            time.sleep(0.5)
+        check(states.get(j1) == "done", f"service-drain: the restart lost {j1}: {states}")
+        procs["service-2"].send_signal(signal.SIGTERM)
+        rcs2 = wait_all(["service-2", "worker-20", "worker-21"], 120)
+        check(rcs2 == {"service-2": 0, "worker-20": 0, "worker-21": 0},
+              f"service-drain: second incarnation exited {rcs2}\n{tails()}")
+    finally:
+        kill_all()
+    wall = time.perf_counter() - t0
+    for jid in (j1, j2):
+        got: dict = {}
+        for path in sorted((root / "out" / f"job-{jid}").glob("mr-*.txt")):
+            for line in path.read_bytes().splitlines():
+                w, v = line.rsplit(b" ", 1)
+                check(w not in got, f"service-drain: {jid} emitted {w!r} twice")
+                got[w] = int(v)
+        check(got == want, f"service-drain: {jid} differs from reference_word_counts "
+              f"({len(got)} vs {len(want)} words)")
+    journal = [json.loads(line)["op"] for line in
+               (root / "work" / "service.journal").read_text().splitlines()]
+    chunks = _map_chunks(sorted(corpus.glob("*.txt")), Config.chunk_bytes)
+    incarnations = {}
+    for inc in ("1", "2"):
+        rows = []
+        for i in range(2):
+            m = json.loads((logs / f"manifest-{inc}-w{procs[f'worker-{inc}{i}'].pid}.json")
+                           .read_text())
+            n = m["kernel_launches"]["tokenize_hash"]
+            if n:
+                check(m["platform"].get("device_name") == torch.cuda.get_device_name(0),
+                      f"service-drain: a worker's manifest names no card: {m['platform']}")
+                check(m["device_mem_high_bytes"] > 0,
+                      "service-drain: a worker launched the kernel but allocated nothing")
+            rows.append({"tokenize_hash": n, "device": m["platform"].get("device_name"),
+                         "device_mem_high_bytes": m["device_mem_high_bytes"]})
+        launched = sum(r["tokenize_hash"] for r in rows)
+        check(launched == chunks, f"service-drain: incarnation {inc}'s workers launched "
+              f"tokenize_hash {launched} times for {chunks} map-task chunks")
+        incarnations[inc] = rows
+    out = {"phase": "service-drain", "exact": True, "map_engine": "device", "wall_s": wall,
+           "first_incarnation_s": drained_s, "jobs": [j1, j2], "exit_codes": {**rcs1, **rcs2},
+           "journal_ops": journal, "chunks_per_job": chunks,
+           "launches": {"tokenize_hash": 2 * chunks}, "workers": incarnations,
+           "totals": {jid: _job_totals(root / "work", jid) for jid in (j1, j2)}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1213,8 +1527,10 @@ def main() -> int:
         app_runs, ctx = phase_apps(work)
         spill_runs = phase_spill(work, corpus, truth, ctx)
         cluster_run = phase_cluster(work, corpus, truth)
-        phase_cluster_kill(work, corpus, truth)
+        phase_cluster_kill(work, ctx["top_dir"], ctx["counts01"])
+        service_run = phase_service(work, corpus, truth, ctx)
         phase_cli(work, text, blobs)
+        drain_run = phase_service_drain(work, text, blobs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1228,11 +1544,14 @@ def main() -> int:
     for run in app_runs + spill_runs:
         check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
               f"{run['phase']}: tokenize_hash launches {run['launches']}")
-    runs.append(cluster_run)
+    runs += [cluster_run, service_run]
     emit({"phase": "launches", "tokenize_hash": {
         run["phase"]: run["launches"]["tokenize_hash"] for run in runs
         if run["map_engine"] == "device"}, "chunks": {
-        run["phase"]: run["chunks"] for run in runs if run["map_engine"] == "device"}})
+        run["phase"]: run["chunks"] for run in runs if run["map_engine"] == "device"},
+        "service-drain": {"tokenize_hash": drain_run["launches"]["tokenize_hash"],
+                          "chunks": 2 * drain_run["chunks_per_job"],
+                          "counted_in": "the workers' manifests"}})
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

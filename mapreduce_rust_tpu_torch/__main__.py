@@ -1,6 +1,7 @@
 """CLI entry points of the port — the ``run``, ``coordinator``, ``worker``,
-``merge`` and ``clean`` subcommands of ``python -m mapreduce_rust_tpu``,
-with the reference's flags for the fields this package implements:
+``service``, ``submit``, ``jobs``, ``merge`` and ``clean`` subcommands of
+``python -m mapreduce_rust_tpu``, with the reference's flags for the
+fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
         [--app {word_count,inverted_index,grep,join,top_k,sort}]
@@ -13,14 +14,21 @@ with the reference's flags for the fields this package implements:
     python -m mapreduce_rust_tpu_torch coordinator --worker-n N [--port P]
         [--speculate [--speculate-after-frac F]] [--metrics-port P] ...
     python -m mapreduce_rust_tpu_torch worker [--engine {device,host}]
-        [--chaos SPEC] ...
+        [--service] [--chaos SPEC] ...
+    python -m mapreduce_rust_tpu_torch service [--max-jobs N]
+        [--inflight-budget-mb MB] [--cache-entries N] [--metrics-port P]
+        [--speculate [--speculate-after-frac F]] ...
+    python -m mapreduce_rust_tpu_torch submit --app APP --input DIR
+        [--priority P] [--wait [--wait-timeout S] [--interval S]] ...
+    python -m mapreduce_rust_tpu_torch jobs [--json] [--port P]
     python -m mapreduce_rust_tpu_torch merge --output DIR [--app top_k --k K]
     python -m mapreduce_rust_tpu_torch clean --work DIR --output DIR
 
 Every command takes ``--trace PATH`` and ``--manifest PATH``; the
-coordinator and the workers suffix them per process. ``run`` and
-``worker`` map on the device engine by default and then need a CUDA device
-unless ``--device cpu`` is given.
+coordinator, the service and the workers suffix them per process.
+``run`` and ``worker`` (``--service`` too) map on the device engine by
+default and then need a CUDA device unless ``--device cpu`` is given. The
+``service``, ``submit`` and ``jobs`` processes never import torch.
 """
 
 from __future__ import annotations
@@ -130,6 +138,9 @@ _SUBCOMMAND_FIELDS = {
     "speculate": ("speculate", False),
     "speculate_after_frac": ("speculate_after_frac", False),
     "metrics_port": ("metrics_port", False),
+    "service_max_jobs": ("max_jobs", False),
+    "service_inflight_budget_mb": ("inflight_budget_mb", False),
+    "service_cache_entries": ("cache_entries", False),
 }
 
 
@@ -259,17 +270,160 @@ def cmd_coordinator(args) -> int:
 
 def cmd_worker(args) -> int:
     from mapreduce_rust_tpu_torch.runtime.chunker import resolve_corpora
-    from mapreduce_rust_tpu_torch.worker.runtime import Worker
+    from mapreduce_rust_tpu_torch.worker.runtime import ServiceWorker, Worker
 
     _arm_crash_dump(args)
     cfg = _cfg(args)
     inputs, _bounds, _names = resolve_corpora(cfg)
-    # A worker against an empty dir registers and exits with the job.
+    # A classic worker against an empty dir registers and exits with the
+    # job; a service worker's app/inputs/dirs arrive per job from the
+    # service's job_spec RPC, so --app/--input only seed its idle baseline.
     cfg = dataclasses.replace(cfg, map_n=max(len(inputs), 1))
-    worker = Worker(cfg, app=_app(args), engine=args.engine)
+    if args.service:
+        worker = ServiceWorker(cfg, engine=args.engine)
+    else:
+        worker = Worker(cfg, app=_app(args), engine=args.engine)
     _arm_worker_drain(worker)
     asyncio.run(worker.run())
     return 0
+
+
+def cmd_service(args) -> int:
+    """Long-lived multi-job service: job submission RPCs, N concurrent
+    jobs over a shared worker fleet, admission control, result cache,
+    graceful drain. SIGTERM = drain (stop admitting, finish running jobs,
+    journal the queue for restart). Imports no torch."""
+    import signal
+
+    from mapreduce_rust_tpu_torch.service.server import JobService
+
+    _arm_crash_dump(args)
+    svc = JobService(_cfg(args))
+
+    async def go() -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            loop.add_signal_handler(signal.SIGTERM, svc.request_drain)
+        except (NotImplementedError, RuntimeError):
+            pass  # non-Unix / nested loop: drain stays reachable via RPC
+        await svc.serve()
+
+    asyncio.run(go())
+    return 0
+
+
+def _service_spec(args) -> dict:
+    """Job spec from the submit CLI's flags — the submit_job payload."""
+    app_args: dict = {}
+    if args.app == "top_k":
+        app_args["k"] = args.k
+    elif args.app == "grep":
+        app_args["query"] = [w for w in args.query.split(",") if w]
+    input_dir, input_dirs = _parse_inputs(args)
+    spec = {
+        "app": args.app,
+        "app_args": app_args,
+        "input_dir": input_dir,
+        "input_pattern": args.pattern,
+        "reduce_n": args.reduce_n,
+        # Output-determining for range apps (splitter derivation input):
+        # rides the spec so the whole fleet samples identically.
+        "split_samples": args.split_samples,
+    }
+    if input_dirs:
+        # Multi-corpus submission: the ordered (name, dir) list rides the
+        # spec; the service digests every corpus.
+        spec["inputs"] = [[n, d] for n, d in input_dirs]
+    return spec
+
+
+def cmd_submit(args) -> int:
+    """``submit``: one job into a running service. Prints the submission
+    result as one JSON line; ``--wait`` polls job_status until the job
+    settles (done/failed/cancelled) and prints the final status too.
+    Exit 0 = submitted (and, with --wait, completed), 1 = rejected or
+    failed, 2 = no service."""
+    import json
+
+    from mapreduce_rust_tpu_torch.coordinator.server import (
+        CoordinatorClient,
+        RpcTimeout,
+    )
+
+    spec = _service_spec(args)
+
+    async def go() -> int:
+        client = CoordinatorClient(args.host, args.port, timeout_s=10.0)
+        try:
+            await client.connect(retries=args.connect_retries, delay=0.2)
+        except (OSError, RpcTimeout) as e:
+            print(f"submit: no service at {args.host}:{args.port} ({e})",
+                  file=sys.stderr)
+            return 2
+        try:
+            res = await client.call("submit_job", spec, args.priority)
+            print(json.dumps(res, sort_keys=True), flush=True)
+            if not isinstance(res, dict) or not res.get("ok"):
+                return 1
+            if not args.wait:
+                return 0
+            jid = res["job"]
+            deadline = (
+                asyncio.get_running_loop().time() + args.wait_timeout
+            )
+            while True:
+                st = await client.call("job_status", jid)
+                state = st.get("state") if isinstance(st, dict) else None
+                if state in ("done", "failed", "cancelled"):
+                    print(json.dumps(st, sort_keys=True), flush=True)
+                    return 0 if state == "done" else 1
+                if asyncio.get_running_loop().time() > deadline:
+                    print(f"submit: {jid} still {state} after "
+                          f"{args.wait_timeout}s", file=sys.stderr)
+                    return 1
+                await asyncio.sleep(args.interval)
+        except (ConnectionError, RpcTimeout) as e:
+            print(f"submit: service went away ({e})", file=sys.stderr)
+            return 2
+        finally:
+            await client.close()
+
+    return asyncio.run(go())
+
+
+def cmd_jobs(args) -> int:
+    """``jobs``: the service-wide queue/running/done table (one
+    ``list_jobs`` call; ``--json`` prints the raw RPC response)."""
+    import json
+
+    from mapreduce_rust_tpu_torch.coordinator.server import (
+        CoordinatorClient,
+        RpcTimeout,
+    )
+    from mapreduce_rust_tpu_torch.runtime.telemetry import format_jobs
+
+    async def go() -> int:
+        client = CoordinatorClient(args.host, args.port, timeout_s=10.0)
+        try:
+            await client.connect(retries=args.connect_retries, delay=0.2)
+        except (OSError, RpcTimeout) as e:
+            print(f"jobs: no service at {args.host}:{args.port} ({e})",
+                  file=sys.stderr)
+            return 1
+        try:
+            view = await client.call("list_jobs")
+        except (ConnectionError, RpcTimeout) as e:
+            print(f"jobs: service went away ({e})", file=sys.stderr)
+            return 1
+        finally:
+            await client.close()
+        if args.json:
+            print(json.dumps(view, sort_keys=True))
+        else:
+            print(format_jobs(view))
+        return 0
+
+    return asyncio.run(go())
 
 
 def cmd_merge(args) -> int:
@@ -382,7 +536,80 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="device", choices=["device", "host"],
                    help="device (default): the device engine, the CUDA scan "
                    "kernel per chunk; host: the native scan maps each file")
+    p.add_argument("--service", action="store_true",
+                   help="join a multi-job service fleet: pull job-tagged "
+                   "tasks across every running job (app/inputs/dirs come "
+                   "per job from the service's job_spec RPC; --app/--input "
+                   "here only seed the idle baseline)")
     p.set_defaults(fn=cmd_worker)
+
+    p = sub.add_parser(
+        "service",
+        help="long-lived multi-job service: submission queue, N concurrent "
+        "jobs over one worker fleet, admission control, result cache, "
+        "graceful drain (SIGTERM)",
+    )
+    _add_common(p)
+    p.add_argument("--max-jobs", type=int, default=Config.service_max_jobs,
+                   dest="max_jobs",
+                   help="concurrent RUNNING jobs; further submissions queue "
+                   "FIFO within priority (default 3)")
+    p.add_argument("--inflight-budget-mb", type=float,
+                   default=Config.service_inflight_budget_mb,
+                   dest="inflight_budget_mb",
+                   help="admission budget: total input MiB across running "
+                   "jobs — a job that would exceed it stays queued (the live "
+                   "doctor reports service-saturated). Default 256")
+    p.add_argument("--cache-entries", type=int,
+                   default=Config.service_cache_entries, dest="cache_entries",
+                   help="result-cache capacity (LRU, keyed on app + corpus "
+                   "digest + config digest; 0 = off): a repeated identical "
+                   "submission is served with zero new task grants. "
+                   "Default 64")
+    p.add_argument("--metrics-port", type=int, default=Config.metrics_port,
+                   dest="metrics_port",
+                   help="Prometheus endpoint (GET /metrics) with per-job "
+                   "job=<id> labels; 0 (default) = off")
+    p.add_argument("--speculate", action="store_true",
+                   help="per-job speculative re-execution (the coordinator "
+                   "flag, applied to every admitted job)")
+    p.add_argument("--speculate-after-frac", type=float,
+                   default=Config.speculate_after_frac,
+                   dest="speculate_after_frac",
+                   help="fraction of a phase done before speculation arms")
+    p.set_defaults(fn=cmd_service)
+
+    p = sub.add_parser(
+        "submit",
+        help="submit one job to a running service (prints the job id; "
+        "--wait polls until it settles)",
+    )
+    _add_common(p)
+    p.add_argument("--priority", type=int, default=0,
+                   help="admission priority (higher admits first; FIFO "
+                   "within a priority). Default 0")
+    p.add_argument("--wait", action="store_true",
+                   help="poll job_status until done/failed/cancelled and "
+                   "print the final status (exit 0 only on done)")
+    p.add_argument("--wait-timeout", type=float, default=600.0,
+                   dest="wait_timeout",
+                   help="--wait deadline in seconds (default 600)")
+    p.add_argument("--interval", type=float, default=0.5,
+                   help="--wait poll period in seconds (default 0.5)")
+    p.add_argument("--connect-retries", type=int, default=5,
+                   dest="connect_retries")
+    p.set_defaults(fn=cmd_submit)
+
+    p = sub.add_parser(
+        "jobs", help="service-wide queue/running/done table (one list_jobs call)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=Config.port)
+    p.add_argument("--json", action="store_true",
+                   help="print the raw list_jobs RPC response")
+    p.add_argument("--connect-retries", type=int, default=5,
+                   dest="connect_retries")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_jobs)
 
     p = sub.add_parser("merge", help="mr-*.txt → final.txt")
     _add_common(p)

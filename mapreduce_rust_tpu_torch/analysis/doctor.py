@@ -4,8 +4,9 @@ already emits.
 The port of ``mapreduce_rust_tpu/analysis/doctor.py``'s diagnosis core:
 ``diagnose`` and its helpers, and the live doctor the coordinator runs
 (``diagnose_live``, ``fold_live_findings``,
-``deactivate_stale_findings``). The ``doctor`` CLI, trend analysis, the
-service findings and the renderers are not ported yet.
+``deactivate_stale_findings``) and the job service's plane findings
+(``service_findings``). The ``doctor`` CLI, trend analysis and the
+renderers are not ported yet.
 
 A run manifest (and optionally its job report and trace) goes in; a ranked
 diagnosis comes out:
@@ -697,3 +698,110 @@ def deactivate_stale_findings(registry: dict, current: set) -> None:
     for key, f in registry.items():
         if key not in current:
             f["active"] = False
+
+
+def service_findings(service: "dict | None") -> list:
+    """Live findings of the multi-tenant service plane over a
+    JobService ``service_summary()`` dict — evaluated by the service's
+    doctor tick beside the per-job diagnose_live passes. The headline
+    finding is ``service-saturated``: the admission budget is holding
+    queued jobs back while jobs already run — by design (backpressure,
+    not a fault), but an operator watching the queue back up needs the
+    doctor to say WHY and which knob to turn."""
+    if not isinstance(service, dict):
+        return []
+    findings: list[dict] = []
+    queued = service.get("queued") or 0
+    if queued and service.get("admission_blocked"):
+        inflight = service.get("inflight_bytes") or 0
+        budget = service.get("budget_bytes") or 0
+        findings.append({
+            "severity": "warn", "code": "service-saturated",
+            "key": "service-saturated",
+            "message": (
+                # MiB, matching the service_inflight_budget_mb knob's
+                # unit (budget_bytes = mb << 20) — an operator must be
+                # able to copy the displayed number back into the flag.
+                f"admission blocked: {inflight / (1 << 20):.1f} MB in "
+                f"flight of a {budget / (1 << 20):.1f} MB budget with "
+                f"{queued} job(s) queued "
+                f"({service.get('running', 0)} running) — backpressure is "
+                "working; raise service_inflight_budget_mb / "
+                "service_max_jobs or add workers to drain faster"
+            ),
+        })
+    elif queued and (service.get("running") or 0) \
+            >= (service.get("max_jobs") or 1):
+        findings.append({
+            "severity": "info", "code": "service-queue",
+            "key": "service-queue",
+            "message": (
+                f"{queued} job(s) queued behind the "
+                f"service_max_jobs={service.get('max_jobs')} concurrency "
+                "cap"
+            ),
+        })
+    # ---- fleet profiler plane ----
+    fl = service.get("fleet_util")
+    if isinstance(fl, dict) and (fl.get("active_ws") or 0) >= 5.0:
+        # ≥ 5 fleet worker-seconds observed: below that a single poll gap
+        # reads as a 100% bubble. Thresholds are deliberately coarse —
+        # these are operator prompts, not SLO breaches.
+        bubble = fl.get("bubble_frac") or 0.0
+        # Quiet on pipelined runs: the scheduler already
+        # grants reduce per partition and fills barriers with other
+        # jobs' map windows — the opportunity the advice names is
+        # realized, and residual bubble is queue pressure the
+        # service-saturated/service-queue findings already cover.
+        if bubble > 0.25 and service.get("sched") != "pipeline":
+            findings.append({
+                "severity": "warn", "code": "barrier-bubble",
+                "key": "barrier-bubble",
+                "message": (
+                    f"{bubble:.0%} of fleet worker-seconds idle while "
+                    "reduce work was barrier-blocked or jobs sat queued "
+                    f"({fl.get('bubble_ws', 0):.1f} worker-s) — rerun "
+                    "the service and its workers with `--sched pipeline` "
+                    "to release reduce per partition and fill barrier "
+                    "bubbles with other jobs' map windows; see "
+                    "`fleet <work-root>` for the per-job breakdown"
+                ),
+            })
+        utils = [
+            w.get("util_frac") for w in (fl.get("workers") or {}).values()
+            if isinstance(w, dict) and not w.get("drained")
+            and isinstance(w.get("util_frac"), (int, float))
+        ]
+        if len(utils) >= 2 and max(utils) > 0.2:
+            mean = sum(utils) / len(utils)
+            if mean > 0 and max(utils) / mean > 2.0:
+                findings.append({
+                    "severity": "warn", "code": "fleet-imbalance",
+                    "key": "fleet-imbalance",
+                    "message": (
+                        f"worker utilization is imbalanced: max "
+                        f"{max(utils):.0%} vs fleet mean {mean:.0%} — "
+                        "admission-order granting is starving part of "
+                        "the fleet (long map tasks on one worker, or a "
+                        "worker polling a barrier-gated job)"
+                    ),
+                })
+    slo = service.get("slo")
+    if isinstance(slo, dict):
+        lo = _hist((slo.get("low") or {}).get("queue_wait_s"))
+        hi = _hist((slo.get("high") or {}).get("queue_wait_s"))
+        if lo is not None and hi is not None:
+            lo95 = lo.percentile(0.95) or 0.0
+            hi95 = hi.percentile(0.95) or 0.0
+            if lo95 > 1.0 and lo95 > 4.0 * max(hi95, 0.05):
+                findings.append({
+                    "severity": "warn", "code": "admission-starvation",
+                    "key": "admission-starvation",
+                    "message": (
+                        f"low-priority queue-wait p95 {lo95:.2f}s vs "
+                        f"high-priority {hi95:.2f}s — strict-priority "
+                        "admission is starving the low class; consider "
+                        "aging or a budget carve-out"
+                    ),
+                })
+    return findings

@@ -2,8 +2,8 @@
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
 single-device engines (device engine and host-map engine, every app), the
-coordinator/worker task path, tracing, the run manifest and the live
-metrics read, with the reference's names, defaults and validation — except ``device``, which
+coordinator/worker task path, the multi-tenant job service, tracing, the
+run manifest and the live metrics read, with the reference's names, defaults and validation — except ``device``, which
 defaults to ``"cuda"``: the port's entry points run on the card and raise
 without one, unless the caller asks for the CPU with ``device="cpu"``.
 
@@ -166,6 +166,20 @@ class Config:
     poll_retry_cap_s: Optional[float] = None  # sentinel-poll backoff cap;
                                     # None = 4 × poll_retry_s
 
+    # ---- Multi-tenant job service (service/server.py) ----
+    service_max_jobs: int = 3       # concurrent RUNNING jobs the service
+                                    # admits; further submissions queue
+                                    # (FIFO within priority)
+    service_inflight_budget_mb: float = 256.0  # admission budget: total
+                                    # input MiB across RUNNING jobs; a job
+                                    # that would pass it stays QUEUED
+                                    # (the doctor's `service-saturated`),
+                                    # unless nothing is running
+    service_cache_entries: int = 64  # result-cache capacity (LRU, keyed on
+                                    # app, corpus digest, config digest); a
+                                    # repeated submission is served from it
+                                    # with zero new task grants; 0 = off
+
     # ---- Not ported (see NOT_PORTED) ----
     mesh_shape: Optional[int] = None
     sharded_stream: bool = False
@@ -243,6 +257,12 @@ class Config:
         if self.sched not in ("fifo", "pipeline"):
             raise ValueError(f"unknown sched {self.sched!r} "
                              "(expected 'fifo' or 'pipeline')")
+        if self.service_max_jobs < 1:
+            raise ValueError("service_max_jobs must be >= 1")
+        if self.service_inflight_budget_mb <= 0:
+            raise ValueError("service_inflight_budget_mb must be positive")
+        if self.service_cache_entries < 0:
+            raise ValueError("service_cache_entries must be >= 0 (0 = off)")
         if self.split_samples < 1:
             raise ValueError("split_samples must be >= 1")
         if self.input_dirs is not None:

@@ -1,7 +1,8 @@
 """Worker runtime: pull-based task loop + map/reduce task execution.
 
-The port of ``mapreduce_rust_tpu/worker/runtime.py::Worker``: the same
-pull loop, renewal heartbeat, retrying RPCs, drain and chaos sites, the
+The port of ``mapreduce_rust_tpu/worker/runtime.py``'s ``Worker`` and
+``ServiceWorker`` (the job service's multi-job fleet member): the same
+pull loops, renewal heartbeat, retrying RPCs, drain and chaos sites, the
 same intermediate files, and the port's engines underneath. There is no
 Python fallback: the host engine needs the native library, the device
 engine needs a card (or ``Config.device="cpu"``), and ``Worker`` raises
@@ -37,6 +38,7 @@ framework's kernels and one reference bug class fixed throughout:
 from __future__ import annotations
 
 import asyncio
+import collections
 import logging
 import os
 import pathlib
@@ -168,6 +170,12 @@ class Worker:
         self.registry = None  # THIS worker's live registry;
         # the process-global slot is unreliable under in-process
         # co-hosted workers, so every worker-side tick/ship uses this.
+        # Job-service context: the job id of the task currently being
+        # executed. None for the classic single-job worker; the
+        # ServiceWorker sets it per job so task flow-chain ids carry the
+        # same ``<jid>:`` prefix the service-side coordinator emits (two
+        # jobs' ``map:0:1`` chains must never merge into one arrow).
+        self._job_ctx: "str | None" = None
         # Per-reduce-partition intermediate bytes of the map task just
         # executed: stashed by _run_map_task on the executor
         # thread, popped by _execute_granted and shipped on the finish
@@ -357,11 +365,14 @@ class Worker:
         if f is not None:
             time.sleep(f.seconds)
 
-    @staticmethod
-    def _task_fid(phase: str, tid: int, att: int) -> str:
-        """Flow-chain id of this attempt (mirrors Coordinator._fid, the
-        other end of the same arrow)."""
-        return f"{phase}:{tid}:{att}"
+    def _task_fid(self, phase: str, tid: int, att: int) -> str:
+        """Flow-chain id of this attempt — job-prefixed under the service
+        (mirrors Coordinator._fid, the other end of the same arrow)."""
+        base = f"{phase}:{tid}:{att}"
+        return f"{self._job_ctx}:{base}" if self._job_ctx else base
+
+    def _job_args(self) -> dict:
+        return {"job": self._job_ctx} if self._job_ctx else {}
 
     def run_map_task(self, tid: int) -> None:
         att = self._attempts.get(("map", tid), 1)
@@ -371,7 +382,7 @@ class Worker:
             # recorder partial even though the span itself is only recorded
             # at task exit (a SIGKILLed attempt leaves the begin mark).
             trace_flow("task", "t", self._task_fid("map", tid, att),
-                       phase="map", tid=tid)
+                       phase="map", tid=tid, **self._job_args())
             trace_instant("worker.task_begin", phase="map", tid=tid, attempt=att)
             self._chaos_task_entry("map", tid, att)
             self._run_map_task(tid)
@@ -473,7 +484,7 @@ class Worker:
         att = self._attempts.get(("reduce", tid), 1)
         with trace_span("worker.reduce_task", tid=tid, attempt=att):
             trace_flow("task", "t", self._task_fid("reduce", tid, att),
-                       phase="reduce", tid=tid)
+                       phase="reduce", tid=tid, **self._job_args())
             trace_instant("worker.task_begin", phase="reduce", tid=tid, attempt=att)
             self._chaos_task_entry("reduce", tid, att)
             self._run_reduce_task(tid)
@@ -512,8 +523,10 @@ class Worker:
     async def _main(self, client: CoordinatorClient) -> bool:
         """The pull loop proper — between registration and teardown.
         Returns True when the worker exited because a DRAIN was
-        requested. The classic two-phase machine. Under ``--sched pipeline`` the two phases interleave
-        instead — coordinator and workers must agree on the mode."""
+        requested. The classic two-phase machine here; the ServiceWorker
+        overrides this with the multi-job loop (same setup/teardown).
+        Under ``--sched pipeline`` the two phases interleave instead —
+        coordinator and workers must agree on the mode."""
         wid = self.worker_id
         if self.cfg.sched_pipeline:
             log.info("worker %d: pipelined map+reduce loop", wid)
@@ -610,7 +623,8 @@ class Worker:
 
     async def _renewal_loop(self, client: CoordinatorClient, method: str,
                             tid: int, stop: asyncio.Event,
-                            revoked: "asyncio.Event | None" = None) -> None:
+                            revoked: "asyncio.Event | None" = None,
+                            job: "str | None" = None) -> None:
         # ``stop`` backs up task cancellation: on Python < 3.12,
         # asyncio.wait_for SWALLOWS a cancel that lands just as its inner
         # future completes (bpo-42130) — with the per-call rpc timeout
@@ -649,8 +663,17 @@ class Worker:
                 # in-process co-hosted workers replace the global, and a
                 # sample shipped under the wrong wid would show every
                 # worker with the last-started worker's stats.
+                # ``job`` is the OUTERMOST trailing arg — a service
+                # renewal always ships 4 params (sample may be None) so
+                # the job id keeps its position; the single-job wire
+                # format below is untouched.
                 reg = self.registry
-                if reg is not None:
+                if job is not None:
+                    ok = await self._call(
+                        client, method, tid, self._wid,
+                        reg.ship_sample() if reg is not None else None, job,
+                    )
+                elif reg is not None:
                     ok = await self._call(client, method, tid, self._wid,
                                           reg.ship_sample())
                 else:
@@ -765,12 +788,14 @@ class Worker:
 
     async def _execute_granted(self, client: CoordinatorClient, phase: str,
                                tid: int, att: int, renew: str, report: str,
-                               run_task) -> bool:
+                               run_task, job: "str | None" = None) -> bool:
         """One granted task end to end — renewal heartbeat on its own
         connection, compute on the executor, speculation-revocation
         handling, the chaos finish sites, and the idempotent finish
-        report. Returns False when the coordinator vanished mid-report —
-        job complete, the caller stops its loop."""
+        report. Shared by the single-job phase loop and the ServiceWorker
+        (``job`` = the service job id, threaded onto the renewal/report
+        RPCs as the trailing arg). Returns False when the coordinator
+        vanished mid-report — job complete, the caller stops its loop."""
         self.report.record_grant(phase, tid, wid=self._wid, attempt=att)
         self._attempts[(phase, tid)] = att
         fid = self._task_fid(phase, tid, att)
@@ -784,7 +809,8 @@ class Worker:
         stop_renewal = asyncio.Event()
         revoked = asyncio.Event()
         renewal = asyncio.create_task(
-            self._renewal_loop(renew_client, renew, tid, stop_renewal, revoked)
+            self._renewal_loop(renew_client, renew, tid, stop_renewal,
+                               revoked, job=job)
         )
         try:
             # Heavy compute off the event loop so renewals keep flowing.
@@ -805,7 +831,8 @@ class Worker:
             # race stays visible in the merged timeline) and never
             # send the finish report — the coordinator-side journal
             # must hold exactly one line per task.
-            trace_flow("task", "f", fid, phase=phase, tid=tid, revoked=True)
+            trace_flow("task", "f", fid, phase=phase, tid=tid, revoked=True,
+                       **self._job_args())
             self.revoked_tasks.append(fid)
             log.info("%s %d: dropping finish report (revoked)", phase, tid)
             maybe_snapshot()
@@ -831,14 +858,16 @@ class Worker:
                 # the attempt's chunk digests, appended by the
                 # coordinator to the job's lineage.jsonl. part_bytes
                 # must fill its slot (possibly None — MR_FLEET=0).
-                params.extend([None, part_bytes, {"chunks": lineage}])
+                params.extend([job, part_bytes, {"chunks": lineage}])
             elif part_bytes is not None:
                 # Trailing default fields, wid/sample-style: old servers
-                # never see them, old clients stay wire-valid. The 4th
-                # slot is the job-service's job id, None for the one job
-                # a Coordinator runs, so part_bytes lands as the 5th
-                # positional as the wire protocol has it.
-                params.extend([None, part_bytes])
+                # never see them, old clients stay wire-valid. ``job``
+                # (the service's job id, None for the one job a
+                # Coordinator runs) must fill its slot so part_bytes lands
+                # as the 5th positional on both Coordinator and service.
+                params.extend([job, part_bytes])
+            elif job is not None:
+                params.append(job)
             try:
                 await self._call_with_retry(client, report, *params)
             except ConnectionError:
@@ -849,7 +878,7 @@ class Worker:
                 # the revocation). Our result is unneeded — terminate
                 # the chain as revoked and end like the poll path.
                 trace_flow("task", "f", fid, phase=phase, tid=tid,
-                           revoked=True)
+                           revoked=True, **self._job_args())
                 self.revoked_tasks.append(fid)
                 log.info("%s %d: coordinator gone before finish report "
                          "— job complete, dropping it", phase, tid)
@@ -980,3 +1009,175 @@ class Worker:
                 stop_metrics(registry)
                 self.registry = None
 
+
+class ServiceWorker(Worker):
+    """Multi-job worker for the JobService: one registration, then a
+    single ``get_task`` pull across EVERY running job — the grant arrives
+    job-tagged ({job, phase, tid, attempt}) and the worker switches its
+    task context (app, inputs, namespaced work/output dirs, reduce_n) per
+    job from a cached ``job_spec`` fetch. Task execution, renewal
+    heartbeats, speculation revocation, chaos sites and the manifest
+    teardown are the inherited single-job machinery — only the loop shape
+    changes (jobs interleave instead of phases sequencing).
+
+    The device engine is the default, as for ``Worker``: without a card
+    (and without ``device="cpu"``) construction raises before the worker
+    registers. The device ``Worker.__init__`` resolved is kept in
+    ``self.device`` and survives every job switch (``_apply_spec``
+    rebuilds ``self.cfg`` only), so no job's map task falls to the CPU.
+
+    Per-job-end teardown: switching jobs drops the per-job device caches
+    (grep's query tensors), which a long-lived multi-job worker would
+    otherwise hold until process exit."""
+
+    #: Spec-cache bound: a fleet member that serves thousands of jobs
+    #: over days must not hoard one spec dict per job forever. LRU — a
+    #: dropped spec is just one job_spec RPC away.
+    SPEC_CACHE_MAX = 64
+
+    def __init__(self, cfg: Config, engine: str = "device") -> None:
+        super().__init__(cfg, engine=engine)
+        self._base_cfg = cfg
+        self._specs: "collections.OrderedDict[str, dict]" = \
+            collections.OrderedDict()
+        self._current_job: "str | None" = None
+
+    async def _main(self, client: CoordinatorClient) -> bool:
+        wid = self.worker_id
+        log.info("worker %d: service loop", wid)
+        poll = Backoff(
+            base_s=self.cfg.poll_retry_s,
+            cap_s=self.cfg.effective_poll_retry_cap_s(),
+            jitter=0.25,
+        )
+        while True:
+            if self._drain.is_set():
+                return True  # between tasks: nothing held, nothing owed
+            try:
+                grant = await self._call_with_retry(client, "get_task",
+                                                    self._wid)
+            except ConnectionError:
+                # Service exited (drained) between polls — a clean end.
+                log.info("service gone — exiting")
+                return False
+            if grant == DONE:
+                return False  # drained and empty: the fleet goes home
+            if not isinstance(grant, dict):
+                # WAIT/NOT_READY: nothing grantable across any job.
+                maybe_snapshot()
+                self._metrics_tick()
+                self._sample_memory()
+                await asyncio.sleep(poll.next_delay())
+                continue
+            poll.reset()
+            jid = grant.get("job")
+            phase = grant.get("phase")
+            tid = grant.get("tid")
+            att = int(grant.get("attempt") or 1)
+            if not isinstance(jid, str) or phase not in ("map", "reduce") \
+                    or not isinstance(tid, int):
+                log.warning("malformed grant %r — skipping", grant)
+                await asyncio.sleep(poll.next_delay())
+                continue
+            if not await self._enter_job(client, jid):
+                continue  # job closed between grant and spec fetch
+            is_map = phase == "map"
+            ok = await self._execute_granted(
+                client, phase, tid, att,
+                "renew_map_lease" if is_map else "renew_reduce_lease",
+                "report_map_task_finish" if is_map
+                else "report_reduce_task_finish",
+                self.run_map_task if is_map else self.run_reduce_task,
+                job=jid,
+            )
+            if not ok:
+                return False
+
+    async def _enter_job(self, client: CoordinatorClient, jid: str) -> bool:
+        """Switch the task context to ``jid`` (no-op when already there):
+        fetch + cache its spec, tear down the previous job's jit cache,
+        and swap app/inputs/dirs. False = the job vanished (done or
+        cancelled between the grant and this fetch) — skip the grant; its
+        lease expires server-side."""
+        if jid == self._current_job:
+            return True
+        spec = self._specs.get(jid)
+        if spec is None:
+            try:
+                spec = await self._call_with_retry(client, "job_spec", jid)
+            except ConnectionError:
+                return False
+            if not isinstance(spec, dict) or not spec.get("ok"):
+                log.warning("job %s: spec unavailable (%s) — skipping grant",
+                            jid, (spec or {}).get("error"))
+                await asyncio.sleep(self.cfg.poll_retry_s)
+                return False
+            self._specs[jid] = spec
+            while len(self._specs) > self.SPEC_CACHE_MAX:
+                self._specs.popitem(last=False)
+        else:
+            self._specs.move_to_end(jid)  # LRU: reuse refreshes recency
+        if self._current_job is not None:
+            self._job_teardown()
+        self._apply_spec(spec)
+        self._current_job = jid
+        return True
+
+    def _job_teardown(self) -> None:
+        """Per-job-end teardown: drop the device-resident per-job cache the
+        port keeps, grep's query tensors (``apps/grep._query_tensors``, an
+        LRU keyed on (query, device)), now rather than at process exit;
+        the next grep chunk rebuilds its own in one small copy. Looked up
+        in ``sys.modules``: a worker that never ran grep has nothing
+        cached and imports nothing here (not the driver either)."""
+        grep = sys.modules.get("mapreduce_rust_tpu_torch.apps.grep")
+        if grep is not None:
+            grep._query_tensors.cache_clear()
+
+    def _apply_spec(self, spec: dict) -> None:
+        import dataclasses
+
+        from mapreduce_rust_tpu_torch.apps import get_app
+        from mapreduce_rust_tpu_torch.runtime.chunker import resolve_corpora
+        from mapreduce_rust_tpu_torch.runtime.splitter import prepare_app
+
+        kwargs = dict(spec.get("app_args") or {})
+        if spec["app"] == "grep":
+            kwargs["query"] = tuple(kwargs.get("query") or ())
+        if spec["app"] == "top_k" and "k" in kwargs:
+            kwargs["k"] = int(kwargs["k"])
+        self.app = get_app(spec["app"], **kwargs)
+        # Multi-corpus jobs ship their ordered (name, dir) list in the
+        # spec; classic jobs keep the single input_dir form.
+        corpora = spec.get("inputs")
+        self.cfg = dataclasses.replace(
+            self._base_cfg,
+            map_n=max(int(spec["map_n"]), 1),
+            reduce_n=int(spec["reduce_n"]),
+            # From the SPEC, never this worker's CLI default: two fleet
+            # members sampling different counts would derive different
+            # splitters for one sort job and route one key two ways.
+            split_samples=int(spec.get("split_samples") or 512),
+            input_dir=spec["input_dir"],
+            input_dirs=(
+                tuple((str(n), str(d)) for n, d in corpora)
+                if corpora else None
+            ),
+            input_pattern=spec["input_pattern"],
+            work_dir=spec["work_dir"],
+            output_dir=spec["output_dir"],
+        )
+        self.inputs, bounds, _names = resolve_corpora(self.cfg)
+        # Range apps re-derive splitters HERE, from the same seeded
+        # sampler as every other fleet member — no splitter exchange RPC,
+        # no divergence: the sample is a pure function of the listing.
+        self.app = prepare_app(self.app, self.cfg, self.inputs, bounds)
+        self.work = pathlib.Path(spec["work_dir"])
+        self.out = pathlib.Path(spec["output_dir"])
+        self._job_ctx = spec["job"]
+        # Stamp this job onto the worker's OWN event-log rows too: the
+        # report spans every job this worker serves, and un-stamped rows
+        # would interleave two jobs' (phase, tid) histories under one
+        # machine in mrcheck's replay (report identity stays the
+        # worker's — row_job, not job_id).
+        self.report.row_job = spec["job"]

@@ -417,7 +417,7 @@ def test_device_worker_raises_without_a_card(corpus, tmp_path, monkeypatch):
         Worker(Config(device="cuda", **fields))  # the device engine by default
 
 
-@pytest.mark.parametrize("cmd", ["run", "coordinator", "worker"])
+@pytest.mark.parametrize("cmd", ["run", "coordinator", "worker", "service", "submit"])
 def test_cli_defaults_are_config_defaults(cmd):
     """A flag the subcommand leaves unset, or does not define, leaves its
     Config field at Config's own default; the worker maps on the card."""
@@ -429,7 +429,8 @@ def test_cli_defaults_are_config_defaults(cmd):
                   "fold_shards", "dispatch_async", "dispatch_coalesce",
                   "dispatch_fill_frac", "host_accum_budget_mb", "dictionary_budget_words",
                   "spill_async", "speculate", "speculate_after_frac", "metrics_port",
-                  "device", "lease_timeout_s", "sched"):
+                  "device", "lease_timeout_s", "sched", "service_max_jobs",
+                  "service_inflight_budget_mb", "service_cache_entries"):
         assert getattr(got, field) == getattr(want, field), field
     if cmd == "worker":
         assert args.engine == "device"

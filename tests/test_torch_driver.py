@@ -235,6 +235,30 @@ async def cluster():
 asyncio.run(cluster())
 lines = b"".join(open(f"{sys.argv[2]}/co/mr-{r}.txt", "rb").read() for r in range(2))
 assert sorted(lines.splitlines()) == ["café 1".encode(), b"hello 3", b"world 1"], lines
+# The job service: one job through a one-worker service on the device engine.
+from mapreduce_rust_tpu_torch.coordinator.server import CoordinatorClient
+from mapreduce_rust_tpu_torch.service.server import JobService
+from mapreduce_rust_tpu_torch.worker.runtime import ServiceWorker
+scfg = Config(device="cpu", chunk_bytes=4096, port=port, work_dir=sys.argv[2] + "/sw",
+              output_dir=sys.argv[2] + "/so", poll_retry_s=0.05)
+async def service():
+    serve = asyncio.create_task(JobService(scfg).serve())
+    await asyncio.sleep(0.1)
+    client = CoordinatorClient(scfg.host, scfg.port)
+    await client.connect()
+    job = await client.call("submit_job", {"app": "word_count", "input_dir": sys.argv[1],
+                                           "reduce_n": 2})
+    worker = asyncio.create_task(ServiceWorker(scfg).run())
+    while (await client.call("job_status", job["job"]))["state"] != "done":
+        await asyncio.sleep(0.05)
+    await client.call("shutdown")
+    await client.close()
+    await asyncio.wait_for(worker, 60)
+    await asyncio.wait_for(serve, 30)
+    return job["job"]
+jid = asyncio.run(service())
+lines = b"".join(open(f"{sys.argv[2]}/so/job-{jid}/mr-{r}.txt", "rb").read() for r in range(2))
+assert sorted(lines.splitlines()) == ["café 1".encode(), b"hello 3", b"world 1"], lines
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
