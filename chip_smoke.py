@@ -34,6 +34,17 @@ one JSON line; any failure raises and ends the run:
               on a 4 MiB chunk of that corpus, against the host's time per
               chunk in the main phase (step-ii: the same for
               inverted_index's "distinct" step in the ii phase);
+   prof     — the main phase's job again with the sampling profiler,
+              ``profile_dir`` (a torch.profiler trace with CUDA activity)
+              and the lineage ledger on, with a trace and a manifest:
+              exact, each mr-{r}.txt byte-identical to main's, one
+              tokenize_hash launch per chunk and as many scan-kernel events
+              in the device trace; prints the device busy share (the union
+              of kernel, copy and set intervals over the stream seconds),
+              the top 10 device kernels by time with their launches, the
+              scan kernel's mean in-job time, the per-plane self time and
+              top frames of the sampling profile, and the wall beside
+              main's (the three switches' tax, reported, not gated);
 6. evict    — the same corpus with merge_capacity=2^18, so evicted tails
               flow to the host accumulator on every merge; exact as well;
 7. host     — the same corpus through the host-map engine
@@ -58,6 +69,20 @@ one JSON line; any failure raises and ends the run:
               its relative doc ids;
    top_k    — top_k (k = 20) on the device engine over documents 0-1,
               equal to the generator's 20 best by (-count, word);
+   prof-host — word_count on documents 0-1 through the host engine with
+              the profiler, the ledger, a device trace and a manifest:
+              exact, no scan kernel launched;
+   calibrate — analysis/roofline.calibrate in this process into a machine
+              file of the run's own: the card's row with the data sheet's
+              HBM rate;
+   analysis-cli — ``python -m mapreduce_rust_tpu_torch`` stats (one
+              manifest, then main's against prof's with --no-gate),
+              doctor (with the trace), prof --roofline --folded over
+              prof-host's manifest (no fraction above 1.05), lineage
+              (summary, a forward query, a backward query whose chunks are
+              in the ledger) and trace merge, each in a subprocess with its
+              own timeout, exit 0 and output; after the service phase,
+              fleet over its service root (every utilization in [0, 1]);
 10. sort / sort-host — a seeded 48 MiB Zipf corpus through sort on each
               engine: mr-{r}.txt concatenated in partition order is in
               order and holds exactly the generator's counts; partition
@@ -811,6 +836,234 @@ def phase_step(name: str, path: pathlib.Path, run: dict, app=None) -> None:
           "device_busy_share_est": run["chunks"] * ms / 1e3 / stream_s})
 
 
+#: Mean time of tokenize_hash's scan kernel at 4 MiB, replayed from a CUDA
+#: graph (PERF.md §6: chip_smoke.py kernel phase, NVIDIA H100 80GB HBM3,
+#: 700 W), set beside its in-job time from the device trace.
+SCAN_KERNEL_GRAPH_MS = 0.0327
+#: The sampling profiler's planes (runtime/prof.py), in the order printed.
+PROF_PLANES = ("router", "ingest", "scan", "fold", "spill", "dispatch", "other")
+
+
+def _digests(out_dir: pathlib.Path, reduce_n: int = 8) -> list[str]:
+    import hashlib
+
+    return [hashlib.blake2b((out_dir / f"mr-{r}.txt").read_bytes(), digest_size=16)
+            .hexdigest() for r in range(reduce_n)]
+
+
+def device_trace_summary(trace_dir: pathlib.Path, stream_s: float) -> dict:
+    """The one torch.profiler trace in ``trace_dir``: device busy share (the
+    union of every kernel, copy and set interval over the stream phase's
+    seconds), the top 10 device kernels by total time with their launch
+    counts, the scan kernel's events and mean time, and which threads'
+    CPU operators the trace holds."""
+    from mapreduce_rust_tpu_torch.runtime.driver import DEVICE_TRACE_CATS
+
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"expected one device trace in {trace_dir}, found {traces}")
+    path = traces[0]
+    events = json.loads(path.read_text()).get("traceEvents") or []
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("cat") in DEVICE_TRACE_CATS)
+    check(spans, f"{path.name}: no device activity in the trace")
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    kernels: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"], [0, 0.0])
+            k[0] += 1
+            k[1] += float(e.get("dur", 0))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    scan = [(n, c, t) for n, (c, t) in kernels.items() if "scan_kernel" in n]
+    scan_n = sum(c for _n, c, _t in scan)
+    scan_us = sum(t for _n, _c, t in scan)
+    cpu_tids: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            cpu_tids[str(e.get("tid"))] = cpu_tids.get(str(e.get("tid")), 0) + 1
+    return {
+        "trace": path.name, "trace_bytes": path.stat().st_size,
+        "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / stream_s,
+        "kernel_names": len(kernels), "kernel_launches": sum(c for c, _t in kernels.values()),
+        "kernel_time_s": sum(t for _c, t in kernels.values()) / 1e6,
+        "top_kernels": [{"name": n[:120], "launches": c, "total_ms": t / 1e3,
+                         "mean_ms": t / c / 1e3, "share_of_stream": t / 1e6 / stream_s}
+                        for n, (c, t) in top],
+        "scan_kernel_events": scan_n,
+        "scan_kernel_mean_ms": scan_us / scan_n / 1e3 if scan_n else None,
+        "scan_kernel_graph_ms_kernel_phase": SCAN_KERNEL_GRAPH_MS,
+        "cpu_op_threads": cpu_tids,
+    }
+
+
+def profile_summary(manifest: dict) -> dict:
+    """Per-plane self-time seconds and the top 5 frames of a manifest's
+    ``stats.profile``."""
+    prof = manifest["stats"].get("profile")
+    check(bool(prof) and prof.get("samples", 0) > 0, "the manifest holds no sampling profile")
+    planes = prof["planes"]
+    # Of the router's (MainThread's) sampled stacks, the share inside the
+    # dictionary fold (the manifest keeps the 512 most frequent stacks).
+    router = fold = 0
+    for line in prof["stacks"]:
+        stack, n = line.rsplit(" ", 1)
+        if stack.startswith("MainThread;"):
+            router += int(n)
+            fold += int(n) * (":fold_scan_into_dictionary:" in stack)
+    return {"hz": prof["hz"], "wall_s": prof["wall_s"], "samples": prof["samples"],
+            "self_s": {p: planes.get(p, {}).get("self_s", 0.0) for p in PROF_PLANES},
+            "unlisted_planes": sorted(set(planes) - set(PROF_PLANES)),
+            "top_frames": prof["top_frames"][:5],
+            "router_fold_share": fold / router if router else None}
+
+
+def phase_prof(work: pathlib.Path, corpus: pathlib.Path, truth, main_run: dict) -> dict:
+    """zipf-256M through run_job on the device engine with the main phase's
+    Config and the three observability switches on: the sampling profiler,
+    ``profile_dir`` (a torch.profiler trace with CUDA activity) and the
+    lineage ledger, plus a trace and a manifest. Exact, byte-identical to
+    the main phase's files, one tokenize_hash launch per chunk, as many
+    scan-kernel events in the device trace as launches."""
+    main_digests = _digests(work / "main-out")
+
+    def outputs(res):
+        fields = zipf_check(truth)(res)
+        check(_digests(work / "prof-out") == main_digests,
+              "prof: mr-{r}.txt differ from the main phase's")
+        return {**fields, "identical_to_main": True}
+
+    run = drive_job("prof", work, outputs, corpus=corpus, profile=True,
+                    profile_dir=str(work / "prof-tp"), lineage=True,
+                    trace_path=str(work / "prof-trace.json"),
+                    manifest_path=str(work / "prof-manifest.json"))
+    launches = run["launches"]["tokenize_hash"]
+    check(launches == run["chunks"], f"prof: {launches} launches for {run['chunks']} chunks")
+    dev = device_trace_summary(work / "prof-tp", run["phase_seconds"]["stream"])
+    check(dev["scan_kernel_events"] == launches,
+          f"prof: {dev['scan_kernel_events']} scan-kernel events in the device trace, "
+          f"{launches} launches counted")
+    manifest = json.loads((work / "prof-manifest.json").read_text())
+    check((work / "prof-manifest.folded").stat().st_size > 0, "prof: no .folded export")
+    ledger = manifest["stats"].get("lineage") or {}
+    check(ledger.get("chunks") == run["chunks"],
+          f"prof: the ledger holds {ledger.get('chunks')} chunks of {run['chunks']}")
+    out = {"phase": "prof", "wall_s": run["wall_s"], "main_wall_s": main_run["wall_s"],
+           "switch_tax_frac": run["wall_s"] / main_run["wall_s"] - 1.0,
+           "stream_s": run["phase_seconds"]["stream"], "launches": launches,
+           "device_trace": dev, "profile": profile_summary(manifest),
+           "lineage": {k: ledger.get(k) for k in ("chunks", "bytes", "corpus_digest")}}
+    emit(out)
+    run["prof"] = out
+    return run
+
+
+def phase_prof_host(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
+    """Documents 0-1 of zipf-ii-256M through the host engine with the
+    sampling profiler, the lineage ledger and a manifest (and a device
+    trace, which shows whose CPU operators torch.profiler records): exact
+    against the generator's counts, no scan kernel launched."""
+    run = drive_job("prof-host", work, zipf_check(truth), corpus=corpus, map_engine="host",
+                    profile=True, lineage=True, profile_dir=str(work / "prof-host-tp"),
+                    manifest_path=str(work / "prof-host-manifest.json"))
+    manifest = json.loads((work / "prof-host-manifest.json").read_text())
+    dev = device_trace_summary(work / "prof-host-tp", run["phase_seconds"]["stream"])
+    out = {"phase": "prof-host", "wall_s": run["wall_s"], "launches": run["launches"],
+           "profile": profile_summary(manifest),
+           "device_trace": {k: dev[k] for k in ("device_events", "device_busy_share",
+                                                "kernel_launches", "cpu_op_threads",
+                                                "trace_bytes")},
+           "merge_dispatches": run["merge_dispatches"]}
+    emit(out)
+    return run
+
+
+def phase_calibrate(work: pathlib.Path) -> pathlib.Path:
+    """roofline.calibrate in this process, where CUDA is initialized: its
+    devices row names the card with the data sheet's HBM rate. Writes a
+    machine file of its own and never reads the checkout's."""
+    import torch
+
+    from mapreduce_rust_tpu_torch.analysis import roofline
+
+    path = work / "machine.json"
+    m = roofline.calibrate(str(path), force=True)
+    name = torch.cuda.get_device_name(0)
+    rows = [d for d in m["devices"] if d.get("kind") == name]
+    check(bool(rows) and rows[0].get("hbm_gbs") == 3350.0,
+          f"calibrate: no {name} row with hbm_gbs 3350: {m['devices']}")
+    emit({"phase": "calibrate", "host_memcpy_gbs": m["host_memcpy_gbs"],
+          "devices": m["devices"]})
+    return path
+
+
+def _analysis_cli(work: pathlib.Path, name: str, args: list, ok=(0,)) -> str:
+    """One analysis command of the port's CLI in a subprocess with its own
+    timeout; returns its standard output, which must not be empty."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mapreduce_rust_tpu_torch", *args],
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    check(r.returncode in ok and r.stdout.strip(),
+          f"cli {name}: exit {r.returncode}, {len(r.stdout)} bytes of output\n"
+          f"{r.stderr[-2000:]}")
+    emit({"phase": "analysis-cli", "command": name, "rc": r.returncode,
+          "seconds": time.perf_counter() - t0, "output_lines": len(r.stdout.splitlines())})
+    return r.stdout
+
+
+def phase_prof_cli(work: pathlib.Path, machine: pathlib.Path) -> None:
+    """stats, doctor, prof --roofline, lineage and trace merge over the prof
+    and prof-host phases' artifacts."""
+    pm, hm = str(work / "prof-manifest.json"), str(work / "prof-host-manifest.json")
+    _analysis_cli(work, "stats", ["stats", pm])
+    _analysis_cli(work, "stats-diff", ["stats", str(work / "main-manifest.json"), pm,
+                                       "--no-gate"])
+    _analysis_cli(work, "doctor", ["doctor", pm, "--trace", str(work / "prof-trace.json")])
+    folded = work / "prof-host.folded"
+    doc = json.loads(_analysis_cli(work, "prof", [
+        "prof", hm, "--roofline", "--machine", str(machine), "--folded", str(folded),
+        "--format", "json"]))
+    _analysis_cli(work, "prof-text", ["prof", hm, "--roofline", "--machine", str(machine)])
+    check(folded.stat().st_size > 0, "prof: empty .folded export")
+    stages = doc["roofline"]["stages"]
+    check(stages, "prof: no roofline stage")
+    over = [s for s in stages if s.get("frac") is not None and s["frac"] > 1.05]
+    check(not over, f"prof: roofline fractions above 1.05: {over}")
+    emit({"phase": "roofline", "stages": stages,
+          "device_hbm_gbs": doc["roofline"]["machine"]["device_hbm_gbs"]})
+    lw = str(work / "prof-work")
+    _analysis_cli(work, "lineage", ["lineage", lw])
+    _analysis_cli(work, "lineage-forward", ["lineage", lw, "--forward", "0"])
+    back = json.loads(_analysis_cli(work, "lineage-backward", [
+        "lineage", lw, "--backward", "0", "--format", "json"]))
+    ledger = [json.loads(line) for line in (work / "prof-work" / "lineage.jsonl")
+              .read_text().splitlines()]
+    digests = {rec["dg"] for rec in ledger if rec.get("t") == "chunk"}
+    named = [c["dg"] for c in back["chunks"]]
+    check(named and set(named) <= digests,
+          f"lineage: the backward query names chunks outside the ledger: {named[:4]}")
+    _analysis_cli(work, "trace-merge", ["trace", "merge", str(work / "prof-merged.json"),
+                                        str(work / "prof-trace.json")])
+
+
+def phase_fleet_cli(work: pathlib.Path) -> None:
+    """fleet over the service phase's service root: the fleet's and every
+    worker's utilization in [0, 1]."""
+    doc = json.loads(_analysis_cli(work, "fleet", ["fleet", str(work / "service-work"),
+                                                   "--format", "json"]))
+    utils = [doc["fleet"]["util_frac"]] + [w["util_frac"] for w in doc["workers"].values()]
+    check(all(0.0 <= u <= 1.0 for u in utils), f"fleet: utilizations outside [0, 1]: {utils}")
+    emit({"phase": "fleet", "util_frac": utils[0], "worker_util_frac": utils[1:],
+          "bubble_frac": doc["fleet"]["bubble_frac"], "jobs": len(doc["jobs"])})
+
+
 def write_text_corpus(dirpath: pathlib.Path) -> list[bytes]:
     import numpy as np
 
@@ -1514,8 +1767,10 @@ def main() -> int:
         text.mkdir()
         blobs = write_text_corpus(text)
         phase_native(corpus, b"".join(blobs))
-        main_run = drive_job("main", work, zipf_check(truth), corpus=corpus)
+        main_run = drive_job("main", work, zipf_check(truth), corpus=corpus,
+                             manifest_path=str(work / "main-manifest.json"))
         phase_step("step", corpus / "part-0.txt", main_run)
+        prof_run = phase_prof(work, corpus, truth, main_run)
         evict = drive_job("evict", work, zipf_check(truth), corpus=corpus,
                           merge_capacity=1 << 18)
         check(evict["spilled_keys"] > 0, "evict: no keys were evicted")
@@ -1525,10 +1780,13 @@ def main() -> int:
                                dispatch_coalesce=False, dispatch_async=False)
         check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
         app_runs, ctx = phase_apps(work)
+        prof_host_run = phase_prof_host(work, ctx["top_dir"], ctx["counts01"])
+        phase_prof_cli(work, phase_calibrate(work))
         spill_runs = phase_spill(work, corpus, truth, ctx)
         cluster_run = phase_cluster(work, corpus, truth)
         phase_cluster_kill(work, ctx["top_dir"], ctx["counts01"])
         service_run = phase_service(work, corpus, truth, ctx)
+        phase_fleet_cli(work)
         phase_cli(work, text, blobs)
         drain_run = phase_service_drain(work, text, blobs)
     finally:
@@ -1540,8 +1798,8 @@ def main() -> int:
         row["launches"] = main_run["launches"][row["name"]]
     check(main_run["launches"]["tokenize_hash"] > 0,
           "the main path never launched tokenize_hash")
-    runs = [main_run, evict, *app_runs, *spill_runs]
-    for run in app_runs + spill_runs:
+    runs = [main_run, prof_run, evict, *app_runs, prof_host_run, *spill_runs]
+    for run in app_runs + [prof_host_run] + spill_runs:
         check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
               f"{run['phase']}: tokenize_hash launches {run['launches']}")
     runs += [cluster_run, service_run]

@@ -1,7 +1,8 @@
 """CLI entry points of the port — the ``run``, ``coordinator``, ``worker``,
 ``service``, ``submit``, ``jobs``, ``merge`` and ``clean`` subcommands of
-``python -m mapreduce_rust_tpu``, with the reference's flags for the
-fields this package implements:
+``python -m mapreduce_rust_tpu`` and its analysis commands (``stats``,
+``doctor``, ``trace``, ``watch``, ``prof``, ``lineage``, ``fleet``), with
+the reference's flags for the fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
         [--app {word_count,inverted_index,grep,join,top_k,sort}]
@@ -10,6 +11,7 @@ fields this package implements:
         [--map-engine host [--host-workers N] [--fold-shards S]
          [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
         [--accum-budget-mb MB] [--dict-budget-words N] [--sync-spill]
+        [--profile [--profile-hz HZ]] [--profile-dir DIR] [--lineage]
     python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
     python -m mapreduce_rust_tpu_torch coordinator --worker-n N [--port P]
         [--speculate [--speculate-after-frac F]] [--metrics-port P] ...
@@ -23,12 +25,21 @@ fields this package implements:
     python -m mapreduce_rust_tpu_torch jobs [--json] [--port P]
     python -m mapreduce_rust_tpu_torch merge --output DIR [--app top_k --k K]
     python -m mapreduce_rust_tpu_torch clean --work DIR --output DIR
+    python -m mapreduce_rust_tpu_torch stats M.json [M2.json [--no-gate]]
+    python -m mapreduce_rust_tpu_torch doctor M.json [--trace T] [--job-report R]
+    python -m mapreduce_rust_tpu_torch trace merge OUT T1.json [T2.json ...]
+    python -m mapreduce_rust_tpu_torch watch [--once] [--json] [--job ID]
+    python -m mapreduce_rust_tpu_torch prof M.json [--folded OUT] [--roofline]
+    python -m mapreduce_rust_tpu_torch lineage WORK [--forward C] [--backward R]
+    python -m mapreduce_rust_tpu_torch fleet SERVICE_ROOT
 
-Every command takes ``--trace PATH`` and ``--manifest PATH``; the
+Every job command takes ``--trace PATH`` and ``--manifest PATH``; the
 coordinator, the service and the workers suffix them per process.
 ``run`` and ``worker`` (``--service`` too) map on the device engine by
 default and then need a CUDA device unless ``--device cpu`` is given. The
-``service``, ``submit`` and ``jobs`` processes never import torch.
+``service``, ``submit`` and ``jobs`` processes and every analysis command
+never import torch: their handlers import lazily and reach no module of
+``apps/``, ``ops/`` or ``runtime/driver.py``.
 """
 
 from __future__ import annotations
@@ -141,6 +152,10 @@ _SUBCOMMAND_FIELDS = {
     "service_max_jobs": ("max_jobs", False),
     "service_inflight_budget_mb": ("inflight_budget_mb", False),
     "service_cache_entries": ("cache_entries", False),
+    "profile": ("profile", False),
+    "profile_hz": ("profile_hz", False),
+    "profile_dir": ("profile_dir", False),
+    "lineage": ("lineage", False),
 }
 
 
@@ -443,6 +458,254 @@ def cmd_merge(args) -> int:
     return 0
 
 
+def cmd_stats(args) -> int:
+    """Pretty-print a run manifest — or, with a second path, diff two
+    (numeric fields with deltas): the BENCH round-over-round comparison
+    without scraping log tails. The diff also runs the doctor's
+    watched-metric regression gate (a -> b, a is the baseline): exit 3
+    when a watched metric regressed beyond its threshold, so CI can gate
+    on `stats old.json new.json`. --threshold-scale loosens/tightens every
+    threshold; --no-gate restores the unconditional exit 0."""
+    from mapreduce_rust_tpu_torch.runtime.telemetry import (
+        diff_manifests,
+        format_manifest,
+        load_manifest,
+    )
+
+    a = load_manifest(args.manifest)
+    if args.other is None:
+        print(format_manifest(a))
+        return 0
+    b = load_manifest(args.other)
+    lines = diff_manifests(a, b)
+    if not lines:
+        print(f"{args.manifest} and {args.other}: no differences")
+        return 0
+    print(f"diff {args.manifest} -> {args.other}:")
+    for line in lines:
+        print(line)
+    if getattr(args, "no_gate", False):
+        return 0
+    from mapreduce_rust_tpu_torch.analysis.doctor import compare_manifests
+
+    regressions = compare_manifests(
+        a, b, threshold_scale=getattr(args, "threshold_scale", 1.0)
+    )
+    if regressions:
+        print(f"REGRESSIONS ({len(regressions)} watched metric(s)):")
+        for r in regressions:
+            chg = "new" if r["change"] is None else f"{r['change']:+.1%}"
+            print(
+                f"  {r['metric']}: {r['baseline']} -> {r['current']} "
+                f"[{chg}, threshold {r['threshold']:.0%} {r['direction']}]"
+            )
+        return 3
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Automated run diagnosis: bottleneck attribution, latency
+    percentiles, skew + straggler detection, lease advice, crash
+    forensics, and a --baseline regression gate. Backend-free, like every
+    analysis tool."""
+    from mapreduce_rust_tpu_torch.analysis.doctor import run_cli
+
+    return run_cli(args)
+
+
+def cmd_trace(args) -> int:
+    """``trace merge <out> <traces...>``: stitch per-process trace files
+    (flight-recorder partials included) onto one timeline — the
+    coordinator's clock when RPC offsets exist, the wall clock otherwise —
+    and write a single Perfetto-loadable file. Backend-free."""
+    from mapreduce_rust_tpu_torch.runtime.trace import merge_traces
+
+    if args.action != "merge":
+        print(f"unknown trace action {args.action!r}", file=sys.stderr)
+        return 2
+    import json
+
+    try:
+        summary = merge_traces(args.out, args.traces,
+                               out_format=getattr(args, "format", "json"))
+    except (OSError, ValueError, KeyError, json.JSONDecodeError) as e:
+        print(f"trace merge: {e}", file=sys.stderr)
+        return 1
+    procs = summary["processes"]
+    print(
+        f"{summary['out']}: {summary['events']} events from "
+        f"{len(procs)} process(es) over {summary['span_s']:.3f}s "
+        f"(reference: {summary['reference']})"
+    )
+    for p in procs:
+        flag = " [partial]" if p["partial"] else ""
+        print(f"  pid {p['pid']:>7}  {p['tag']:<12} clock={p['clock_domain']}"
+              f"{flag}  {p['path']}")
+    return 0
+
+
+def cmd_watch(args) -> int:
+    """Live plain-text job view: polls the coordinator's ``stats`` RPC at
+    ``--interval`` (default 1 Hz) and repaints per-phase progress + lease
+    liveness until the job completes or the coordinator goes away.
+    ``--doctor`` adds the streaming doctor's live findings + fleet
+    samples (the ``metrics`` RPC); ``--json`` streams one machine-readable
+    NDJSON object per poll instead of the TUI (``--once --json`` is the
+    scripting form: one object, exit)."""
+    import json
+    import time as _time
+
+    from mapreduce_rust_tpu_torch.coordinator.server import CoordinatorClient, RpcTimeout
+    from mapreduce_rust_tpu_torch.runtime.telemetry import format_jobs, format_progress
+
+    job = getattr(args, "job", None)
+
+    async def go() -> int:
+        client = CoordinatorClient(
+            args.host, args.port, timeout_s=max(args.interval * 5, 3.0)
+        )
+        try:
+            await client.connect(retries=args.connect_retries, delay=0.2)
+        except (OSError, RpcTimeout) as e:
+            print(f"watch: no coordinator at {args.host}:{args.port} ({e})",
+                  file=sys.stderr)
+            return 1
+        as_json = getattr(args, "json", False)
+        clear = sys.stdout.isatty() and not args.once and not as_json
+        # Against a JobService: --job <id> polls that job's status (the
+        # coordinator stats shape — the classic renderer applies);
+        # without an id the service-wide queue/running/done table
+        # renders. A pre-service coordinator answers "unknown method" to
+        # the probe and the classic stats loop takes over.
+        service_mode = False
+        if job is None:
+            try:
+                await client.call("list_jobs")
+                service_mode = True
+            except RuntimeError as e:
+                if "unknown method" not in str(e):
+                    raise
+            except (ConnectionError, RpcTimeout):
+                print("watch: coordinator gone — job finished or stopped")
+                await client.close()
+                return 0
+        try:
+            while True:
+                try:
+                    if job is not None:
+                        rep = await client.call("job_status", job)
+                    elif service_mode:
+                        rep = await client.call("list_jobs")
+                    else:
+                        rep = await client.call("stats")
+                    live = (
+                        await client.call("metrics")
+                        if getattr(args, "doctor", False) else None
+                    )
+                except RpcTimeout as e:
+                    # Alive-but-not-answering is the wedge the RPC
+                    # timeouts exist to expose — it must never render as
+                    # "job finished" (exit 0).
+                    print(f"watch: coordinator not answering — wedged? ({e})",
+                          file=sys.stderr)
+                    return 1
+                except (ConnectionError, RuntimeError) as e:
+                    if isinstance(e, RuntimeError):
+                        if "unknown method" not in str(e):
+                            raise
+                        if job is not None:
+                            # --job against a pre-service coordinator:
+                            # there is no job_status RPC to poll — error
+                            # out once, never spin on the unknown-method
+                            # reply.
+                            print("watch: coordinator has no job_status "
+                                  "RPC — not a job service (drop --job)",
+                                  file=sys.stderr)
+                            return 2
+                        # --doctor against a pre-metrics coordinator:
+                        # degrade to the plain view, loudly once.
+                        print("watch: coordinator predates the metrics RPC "
+                              "— --doctor unavailable", file=sys.stderr)
+                        args.doctor = False
+                        continue
+                    print("watch: coordinator gone — job finished or stopped")
+                    return 0
+                if job is not None and isinstance(rep, dict) \
+                        and rep.get("ok") is False:
+                    print(f"watch: {rep.get('error')}", file=sys.stderr)
+                    return 2
+                if as_json:
+                    # One NDJSON object per poll: everything the TUI
+                    # renders, machine-readable for external tooling.
+                    row = {"t": round(_time.time(), 3), "stats": rep}
+                    if live is not None:
+                        row["metrics"] = live
+                    print(json.dumps(row, sort_keys=True), flush=True)
+                else:
+                    if service_mode and job is None:
+                        text = format_jobs(rep)
+                    elif job is not None and "progress" not in rep:
+                        # Queued/cached/done service job: no live
+                        # coordinator state to render — the summary row
+                        # says everything.
+                        text = json.dumps(rep, sort_keys=True, indent=2)
+                    else:
+                        text = (f"job {job} [{rep.get('state')}]\n"
+                                if job is not None else "") \
+                            + format_progress(rep)
+                    if live is not None:
+                        from mapreduce_rust_tpu_torch.analysis.doctor import format_live
+
+                        text += "\n" + format_live(live, rep)
+                    print(("\x1b[H\x1b[2J" + text) if clear else text,
+                          flush=True)
+                if job is not None:
+                    done = rep.get("state") in ("done", "failed",
+                                                "cancelled")
+                elif service_mode:
+                    sv = rep.get("service") or {}
+                    done = sv.get("draining") and not sv.get("running")
+                else:
+                    done = (rep.get("progress") or {}).get("done")
+                if args.once or done:
+                    return 0
+                await asyncio.sleep(args.interval)
+        finally:
+            await client.close()
+
+    return asyncio.run(go())
+
+
+def cmd_prof(args) -> int:
+    """mrprof: render a manifest's sampling profile (per-plane
+    self-time split, top frames), export its collapsed stacks as a
+    .folded file, and attach roofline attribution (achieved-vs-roof per
+    stage from the .bench/machine.json calibration). Torch-free, like
+    every analysis command."""
+    from mapreduce_rust_tpu_torch.analysis.roofline import run_cli
+
+    return run_cli(args)
+
+
+def cmd_lineage(args) -> int:
+    """mrlineage: provenance queries + recompute blast radius
+    over a run's lineage ledger. Torch-free, like every analysis
+    command: reads jsonl/manifest/partial artifacts only."""
+    from mapreduce_rust_tpu_torch.analysis.lineage import run_cli
+
+    return run_cli(args)
+
+
+def cmd_fleet(args) -> int:
+    """Fleet profiler: cross-job utilization timeline,
+    barrier-bubble accounting, pipelining opportunity. Torch-free, like
+    every analysis command: joins on-disk artifacts, never dials a
+    server."""
+    from mapreduce_rust_tpu_torch.runtime.fleet import run_cli
+
+    return run_cli(args)
+
+
 def cmd_clean(args) -> int:
     """Remove a job's intermediates and outputs (reference src/clean.sh):
     spill runs (``accrun-*``, ``dictrun-*``, and what the reference's
@@ -511,6 +774,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write spill runs inline on their owner thread instead "
                    "of the background writer (outputs identical; "
                    "MR_SPILL_SYNC=1 does the same)")
+    p.add_argument("--profile", action="store_true",
+                   help="in-process sampling profiler (runtime/prof.py): "
+                   "one thread walks sys._current_frames() at ~97 Hz, "
+                   "collapsed stacks keyed by plane-thread names, into "
+                   "the manifest as stats.profile + a .folded export "
+                   "beside it; inspect with the `prof` subcommand "
+                   "(MR_PROFILE=1 for a process tree)")
+    p.add_argument("--profile-hz", type=float, default=Config.profile_hz,
+                   dest="profile_hz", metavar="HZ",
+                   help="sampler rate (default 97 — prime, never "
+                   "phase-locks with periodic work)")
+    p.add_argument("--profile-dir", default=None, dest="profile_dir",
+                   metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the stream "
+                   "phase into DIR, with the card's kernels and copies")
+    p.add_argument("--lineage", action="store_true",
+                   help="chunk-level provenance ledger (runtime/"
+                   "lineage.py): per-chunk content digests + partition "
+                   "routing to {work}/lineage.jsonl, summarized in the "
+                   "manifest as stats.lineage; query with the `lineage` "
+                   "subcommand. Observational only — outputs are "
+                   "byte-identical (MR_LINEAGE=1 for a process tree)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("coordinator", help="control-plane scheduler")
@@ -618,6 +903,201 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("clean", help="remove intermediates and outputs")
     _add_common(p)
     p.set_defaults(fn=cmd_clean)
+
+    p = sub.add_parser(
+        "fleet",
+        help="fleet profiler: cross-job per-worker busy/idle timeline, "
+        "barrier-bubble accounting and pipelining opportunity from a "
+        "service root (service.journal + job-*/) or a single workdir",
+    )
+    p.add_argument("target",
+                   help="service work root (service.journal + job-* dirs) "
+                   "or a single-job work dir (job_report.json)")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full fleet report for CI diffs")
+    p.add_argument("--baseline", default=None, metavar="PATH",
+                   help="prior fleet report (JSON): exit 1 when "
+                   "fleet_bubble_frac regressed beyond the guard band")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="text format: print every timeline interval")
+    p.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser(
+        "prof",
+        help="mrprof: render a run's sampling profile (per-plane "
+        "self-time, top frames), export collapsed stacks for "
+        "flamegraph.pl/speedscope, and attach roofline attribution "
+        "(achieved-vs-roof per stage)",
+    )
+    p.add_argument("manifest",
+                   help="run manifest (stats.profile) or a flight-recorder "
+                   "*.partial.json (its embedded live profile)")
+    p.add_argument("--folded", default=None, metavar="OUT",
+                   help="write the collapsed stacks as a .folded file "
+                   "(flamegraph.pl / speedscope both load it)")
+    p.add_argument("--roofline", action="store_true",
+                   help="attach per-stage achieved-vs-roof attribution; "
+                   "calibrates .bench/machine.json on first use (host "
+                   "memcpy micro-probe; device peaks only when CUDA is "
+                   "already initialized in the process)")
+    p.add_argument("--machine", default=None, metavar="PATH",
+                   help="calibration file (default .bench/machine.json)")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full document for CI diffs")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_prof)
+
+    p = sub.add_parser(
+        "lineage",
+        help="mrlineage: chunk-level provenance queries over a run's "
+        "lineage.jsonl — forward (chunk → partitions), backward "
+        "(partition → chunks + attempt chain), and `lineage diff "
+        "<old> <new>` recompute blast radius (memo_hit_frac)",
+    )
+    p.add_argument("target", nargs="+",
+                   help="a lineage.jsonl, a work dir holding one, a run "
+                   "manifest (stats.lineage), or a flight-recorder "
+                   "*.partial.json (its embedded tail) — or the literal "
+                   "'diff' followed by two such targets (old, new)")
+    p.add_argument("--forward", default=None, metavar="CHUNK",
+                   help="forward query: ledger seq or digest prefix → "
+                   "the reduce partitions the chunk contributed to")
+    p.add_argument("--backward", default=None, metavar="R", type=int,
+                   help="backward query: reduce partition → contributing "
+                   "chunks (digests, bytes, docs) + attempt chain; "
+                   "exit 2 when the set is empty")
+    p.add_argument("--stamp", action="store_true",
+                   help="(diff) write memo_hit_frac / blast radius into "
+                   "the NEW target's manifest stats.lineage block — the "
+                   "doctor's incremental-opportunity finding cites it")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full document for CI diffs")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_lineage)
+
+    p = sub.add_parser("stats", help="pretty-print a run manifest, or diff two")
+    p.add_argument("manifest", help="manifest.json of a run")
+    p.add_argument("other", nargs="?", default=None,
+                   help="second manifest: print a field-level diff and run "
+                   "the watched-metric regression gate (exit 3 on a "
+                   "regression; manifest = baseline, other = current)")
+    p.add_argument("--threshold-scale", type=float, default=1.0,
+                   dest="threshold_scale",
+                   help="multiply every watched-metric threshold "
+                   "(analysis/doctor.WATCHED_METRICS) by this factor; "
+                   "2.0 = twice as tolerant, 0.5 = twice as strict")
+    p.add_argument("--no-gate", action="store_true", dest="no_gate",
+                   help="diff only — always exit 0, as before the gate")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser(
+        "doctor",
+        help="automated run diagnosis: bottleneck attribution, latency "
+        "percentiles, skew/straggler/lease findings, regression gate",
+    )
+    p.add_argument("manifest", nargs="?", default=None,
+                   help="run (or coordinator/bench) manifest to "
+                   "diagnose — or the literal 'trend' to analyze a bench "
+                   "history for sustained drift (omit with --live)")
+    p.add_argument("--live", default=None, metavar="HOST:PORT",
+                   help="streaming doctor against a RUNNING coordinator: "
+                   "poll its stats+metrics RPCs and print findings as "
+                   "they first appear, until the job completes")
+    p.add_argument("--job", default=None, metavar="ID",
+                   help="with --live against a multi-job service: stream "
+                   "ONE job's view (its job_status RPC; findings filtered "
+                   "to that job plus the service-plane codes)")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="--live poll period in seconds (default 1.0)")
+    p.add_argument("--once", action="store_true",
+                   help="--live: print one snapshot and exit")
+    p.add_argument("history", nargs="?", default=None,
+                   help="with 'trend': the history file (default "
+                   ".bench/history.jsonl) — exit 1 on sustained drift of a "
+                   "watched series (slope + last-vs-median over --window "
+                   "rounds), the regression class the pairwise gate misses")
+    p.add_argument("--window", type=int, default=8,
+                   help="trend: rounds to analyze (default 8)")
+    p.add_argument("--drift-threshold", type=float, default=0.10,
+                   dest="drift_threshold",
+                   help="trend: relative drift across the window that "
+                   "counts as sustained (default 0.10)")
+    p.add_argument("--trace", default=None, metavar="TRACE",
+                   help="trace file (merged or per-process, partials "
+                   "accepted): enables attempt-chain crash forensics")
+    p.add_argument("--job-report", default=None, metavar="REPORT",
+                   dest="job_report",
+                   help="job_report.json (or a manifest embedding one): "
+                   "enables straggler/lease/re-execution analysis")
+    p.add_argument("--baseline", default=None, metavar="MANIFEST2",
+                   help="prior run's manifest: compare watched metrics and "
+                   "exit 1 when one regressed beyond threshold (CI gate)")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full diagnosis document for CI diffs")
+    p.add_argument("--straggler-factor", type=float, default=2.0,
+                   dest="straggler_factor",
+                   help="flag workers whose task p50 exceeds this multiple "
+                   "of the fleet median (default 2.0)")
+    p.add_argument("--threshold-scale", type=float, default=1.0,
+                   dest="threshold_scale",
+                   help="scale every --baseline threshold (2.0 = twice as "
+                   "tolerant)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser(
+        "trace",
+        help="trace-file tooling: merge per-process traces onto one timeline",
+    )
+    p.add_argument("action", choices=["merge"],
+                   help="merge: stitch trace files (partials included) onto "
+                   "the coordinator clock and write one Perfetto-loadable "
+                   "timeline")
+    p.add_argument("--format", choices=["json", "perfetto"], default="json",
+                   dest="format",
+                   help="json (default): Chrome trace-event JSON; "
+                   "perfetto: binary track_event protobuf (.pftrace, "
+                   "hand-rolled varint writer, no deps) — for >100 MB "
+                   "timelines the JSON loader chokes on")
+    p.add_argument("out", help="output path for the merged trace")
+    p.add_argument("traces", nargs="+",
+                   help="per-process trace files (trace-coord.json, "
+                   "trace-w*.json, *.partial.json, driver traces)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "watch",
+        help="live plain-text job view against a running coordinator "
+        "(polls the stats RPC)",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=1040)
+    p.add_argument("--job", default=None, metavar="ID",
+                   help="against a multi-job service: watch ONE job "
+                   "(its job_status view); without it a service renders "
+                   "the queue/running/done table instead of single-job "
+                   "progress")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="poll period in seconds (default 1 Hz)")
+    p.add_argument("--once", action="store_true",
+                   help="print one snapshot and exit (scripting/tests); "
+                   "--once --json is the scripting form: one "
+                   "machine-readable object on stdout, exit 0")
+    p.add_argument("--json", action="store_true",
+                   help="stream one NDJSON object per poll ({t, stats"
+                   "[, metrics]}) instead of the TUI — external tooling "
+                   "consumes exactly what the TUI shows")
+    p.add_argument("--doctor", action="store_true",
+                   help="streaming doctor: append the coordinator's live "
+                   "findings (straggler, lease advice, skew, bottleneck "
+                   "attribution — with first-seen timestamps) and the "
+                   "fleet's renewal-envelope samples to every poll")
+    p.add_argument("--connect-retries", type=int, default=5,
+                   dest="connect_retries")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_watch)
     return parser
 
 

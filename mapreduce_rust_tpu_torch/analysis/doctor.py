@@ -1,12 +1,12 @@
 """``doctor``: automated run diagnosis over the telemetry the framework
 already emits.
 
-The port of ``mapreduce_rust_tpu/analysis/doctor.py``'s diagnosis core:
-``diagnose`` and its helpers, and the live doctor the coordinator runs
-(``diagnose_live``, ``fold_live_findings``,
-``deactivate_stale_findings``) and the job service's plane findings
-(``service_findings``). The ``doctor`` CLI, trend analysis and the
-renderers are not ported yet.
+The port of ``mapreduce_rust_tpu/analysis/doctor.py``, whole: ``diagnose``
+and its helpers, the live doctor the coordinator runs (``diagnose_live``,
+``fold_live_findings``, ``deactivate_stale_findings``), the job service's
+plane findings (``service_findings``), the streaming view
+(``format_live``, ``run_live_cli``), trend analysis over a bench history
+and the ``doctor`` CLI.
 
 A run manifest (and optionally its job report and trace) goes in; a ranked
 diagnosis comes out:
@@ -39,6 +39,8 @@ milliseconds).
 """
 
 from __future__ import annotations
+
+import json
 
 from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
 # One flattener for both consumers of manifest paths: diff_manifests
@@ -325,10 +327,44 @@ def diagnose(manifest: dict, job_report: "dict | None" = None,
                  "persistent cache or measure a longer run")
 
         # ---- roofline attribution ----
-        # The reference scores the host-map scan against a calibrated
-        # host memcpy roof here (analysis/roofline.py). The roofline tool
-        # is not ported yet; a live manifest never carries host_map_split,
-        # so the coordinator's doctor never reaches this branch.
+        # "The scan is slow" gets a headroom number: achieved GB/s vs the
+        # calibrated machine roof for the host-map scan. Uses the cached
+        # .bench/machine.json when one exists; otherwise a quick in-memory
+        # memcpy probe (no file written — the doctor is read-only).
+        if stats.get("host_map_split") and stats.get("bytes_in"):
+            try:
+                from mapreduce_rust_tpu_torch.analysis import roofline as _roofline
+
+                machine = _roofline.load_machine() or _roofline.calibrate(
+                    persist=False, size_mb=16)
+                rl = _roofline.roofline_report(manifest, machine)
+            except Exception:
+                rl = None
+            if rl and rl.get("roofline_frac"):
+                diag["roofline"] = rl
+                frac = rl["roofline_frac"]
+                ach = rl["scan_achieved_gbs"]
+                roof = rl["machine"]["host_memcpy_gbs"]
+                proj = rl.get("device_map_projection_x")
+                if frac >= 0.6:
+                    find("warn", "bandwidth-bound",
+                         f"host-map scan runs at {ach:.2f} GB/s = {frac:.0%} "
+                         f"of the {roof:.2f} GB/s host memcpy roof — the "
+                         "host wire is nearly saturated; no same-engine "
+                         "tuning buys much, only the device-resident map "
+                         "(ROADMAP item 2) takes these bytes off the host "
+                         "path"
+                         + (f" (projected ~{proj:g}× at half the device "
+                            "roof)" if proj else ""))
+                else:
+                    find("info", "compute-headroom",
+                         f"host-map scan achieves {ach:.2f} GB/s = {frac:.0%} "
+                         f"of the {roof:.2f} GB/s host memcpy roof — the "
+                         f"scan is compute-limited with ~{1.0 / frac:.1f}× "
+                         "bandwidth headroom on this wire; a device-resident "
+                         "map (ROADMAP item 2) is the lever"
+                         + (f" (projected ~{proj:g}× at half the target "
+                            "roof)" if proj else ""))
 
         # ---- lineage / incremental opportunity ----
         # A stamped blast-radius diff turns "rerun everything" into a
@@ -805,3 +841,481 @@ def service_findings(service: "dict | None") -> list:
                     ),
                 })
     return findings
+
+
+def format_live(metrics_rpc: dict, stats_rpc: "dict | None" = None) -> str:
+    """Plain-text view of the coordinator ``metrics`` RPC — the streaming
+    findings (first-seen stamps, live/cleared state) and the fleet's
+    freshest samples. ``watch --doctor`` appends this under the progress
+    view; ``doctor --live`` prints it on its own."""
+    lines: list[str] = []
+    findings = metrics_rpc.get("findings") or []
+    if findings:
+        lines.append(f"  doctor[live]: {len(findings)} finding(s)")
+        for f in findings:
+            state = "live" if f.get("active", True) else "cleared"
+            lines.append(
+                f"    [{f['severity'].upper():<5}] {f['code']}"
+                f" (first seen {f.get('first_seen_s', 0):.1f}s, {state}): "
+                f"{f['message']}"
+            )
+    else:
+        lines.append("  doctor[live]: no findings yet")
+    fleet = metrics_rpc.get("fleet") or {}
+    for wid, s in sorted(fleet.items(), key=lambda kv: str(kv[0])):
+        v = s.get("v") or {}
+        parts = [
+            f"{k.split('.', 1)[-1]}={v[k]:g}" for k in sorted(v)
+            if isinstance(v[k], (int, float)) and not isinstance(v[k], bool)
+        ]
+        lines.append(
+            f"    w{wid} sample ({s.get('age_s', 0):.1f}s old): "
+            + (" ".join(parts[:8]) or "empty")
+        )
+    return "\n".join(lines)
+
+
+def run_live_cli(args) -> int:
+    """``doctor --live HOST:PORT``: poll the coordinator's stats+metrics
+    RPCs and stream findings as they appear, until the job completes (or
+    --once). Exit 0 on a completed/observed job, 1 when no coordinator
+    answers. Backend-free like every analysis tool."""
+    import asyncio
+
+    from mapreduce_rust_tpu_torch.coordinator.server import (
+        CoordinatorClient,
+        RpcTimeout,
+    )
+
+    addr = args.live
+    host, _, port_s = addr.rpartition(":")
+    host = host or "127.0.0.1"
+    try:
+        port = int(port_s)
+    except ValueError:
+        print(f"doctor --live: bad address {addr!r} (want HOST:PORT)")
+        return 2
+    interval = getattr(args, "interval", None) or 1.0
+    once = bool(getattr(args, "once", False))
+    # ``--job <id>``: against a JobService, stream ONE job's
+    # view — its stats come from the job_status RPC and the service's
+    # findings are filtered to that job's key prefix.
+    job = getattr(args, "job", None)
+
+    async def go() -> int:
+        client = CoordinatorClient(host, port,
+                                   timeout_s=max(interval * 5, 3.0))
+        try:
+            await client.connect(retries=5, delay=0.2)
+        except (OSError, RpcTimeout) as e:
+            print(f"doctor --live: no coordinator at {host}:{port} ({e})")
+            return 1
+        seen: set = set()
+        try:
+            while True:
+                try:
+                    rep = await client.call("job_status", job) if job \
+                        else await client.call("stats")
+                    live = await client.call("metrics")
+                except RpcTimeout as e:
+                    print(f"doctor --live: coordinator not answering ({e})")
+                    return 1
+                except (ConnectionError, RuntimeError) as e:
+                    # Gone = job finished; RuntimeError = pre-metrics
+                    # coordinator (unknown method) — say which.
+                    if isinstance(e, RuntimeError) and "unknown method" in str(e):
+                        print("doctor --live: coordinator predates the "
+                              "metrics RPC — upgrade it or use post-run "
+                              "`doctor <manifest>`")
+                        return 2
+                    print("doctor --live: coordinator gone — job finished")
+                    return 0
+                if job and isinstance(rep, dict) and rep.get("ok") is False:
+                    print(f"doctor --live: {rep.get('error')}")
+                    return 2
+                if job:
+                    # Per-job filter: the service prefixes per-job finding
+                    # keys with "<jid>:" (service-plane findings like
+                    # service-saturated stay visible — they affect every
+                    # job).
+                    live = dict(live)
+                    live["findings"] = [
+                        f for f in live.get("findings") or []
+                        if f.get("job") == job
+                        or str(f.get("key", "")).startswith(f"{job}:")
+                        or str(f.get("code", "")).startswith("service-")
+                    ]
+                if getattr(args, "format", "text") == "json":
+                    print(json.dumps({"stats": rep, "metrics": live},
+                                     sort_keys=True), flush=True)
+                else:
+                    for f in live.get("findings") or []:
+                        key = f.get("key") or f.get("code")
+                        if key not in seen:
+                            seen.add(key)
+                            print(
+                                f"[{f.get('first_seen_s', 0):>7.1f}s] "
+                                f"[{f['severity'].upper():<5}] "
+                                f"{f['code']}: {f['message']}", flush=True,
+                            )
+                done = rep.get("state") in ("done", "cancelled", "failed") \
+                    if job else (rep.get("progress") or {}).get("done")
+                if once or done:
+                    if getattr(args, "format", "text") == "text":
+                        print(format_live(live, rep))
+                        if done:
+                            print("doctor --live: job complete")
+                    return 0
+                await asyncio.sleep(interval)
+        finally:
+            await client.close()
+
+    return asyncio.run(go())
+
+
+# ---------------------------------------------------------------------------
+# Trend: N-round drift detection over .bench/history.jsonl
+# ---------------------------------------------------------------------------
+
+#: History-line series the trend gate watches: field → the direction that
+#: is BAD ("down": a decline regresses — these are GB/s-class metrics).
+TREND_SERIES: dict[str, str] = {
+    "value": "down",
+    "zipf_gbs": "down",
+    # Live-metrics sampler tax: bench measures a metrics-on vs
+    # metrics-off pair each run; a creeping overhead fraction is exactly
+    # the slow-boil regression class trend exists for.
+    "metrics_overhead_frac": "up",
+    # Dispatch-plane coalescing effectiveness: mean update
+    # fill drifting DOWN means dispatches go out emptier round over round
+    # — the coalesce factor eroding (a vocabulary shift, a threshold
+    # regression) long before the wall number moves.
+    "merge_fill_frac": "down",
+    # Job-service throughput: the bench service leg's
+    # jobs-per-minute over a fixed mixed-submission stream. Drifting DOWN
+    # means the control plane itself (admission, dispatch, per-job
+    # bookkeeping) got slower — the regression class a single-job wall
+    # number can never see.
+    "service_jobs_per_min": "down",
+    # Workload plane: the bench sort leg's wall and its
+    # realized partition-bytes skew ratio. Wall drifting UP is the
+    # range-partitioned path slowing; skew drifting UP is the sampled
+    # splitters degrading (sampler regression, corpus-generator drift) —
+    # each invisible to the hash legs.
+    "sort_wall_s": "up",
+    "sort_skew": "up",
+    # Fleet profiler: the bench service leg's cross-job
+    # accounting. Bubble fraction drifting UP means more fleet
+    # worker-seconds lost to the map barrier / admission queue; util
+    # drifting DOWN is the same loss seen from the other side; the
+    # pipelining opportunity drifting UP means the barrier is leaving
+    # ever more reclaimable headroom on the table (ROADMAP item 1's
+    # before/after number).
+    "fleet_bubble_frac": "up",
+    "fleet_util_frac": "down",
+    "pipelining_opportunity_s": "up",
+    # Model checker: mrmodel exploration throughput over the
+    # fixed bench budget. Drifting DOWN means the real control plane (or
+    # the invariant replay it runs per schedule) got slower — and since
+    # CI explores under a fixed time box, a slower loop silently shrinks
+    # the schedule space actually covered.
+    "model_schedules_per_s": "down",
+    # Roofline attribution: the zipf leg's host-map scan
+    # achieved GB/s and its fraction of the calibrated memcpy roof.
+    # Either drifting DOWN means the scan is moving AWAY from the
+    # hardware — a native-scan regression or a machine/calibration shift
+    # — exactly the efficiency erosion a wall-seconds series hides when
+    # corpus size drifts with it.
+    "scan_achieved_gbs": "down",
+    "roofline_frac": "down",
+    # Sampler tax: the --profile-overhead interleaved pair's
+    # min-of-N estimate; creeping UP is the profiler outgrowing its ≤2%
+    # budget (the metrics_overhead_frac twin).
+    "profile_overhead_frac": "up",
+    # Provenance plane: the --lineage-overhead pair's ledger
+    # tax creeping UP is the digest/ledger path outgrowing its ≤2%
+    # budget; the blast-radius leg's memo_hit_frac drifting DOWN on the
+    # fixed +1% grown corpus means chunking stability eroded — a window
+    # boundary shift silently shrinking what incremental re-execution
+    # (ROADMAP item 4) could ever skip.
+    "lineage_overhead_frac": "up",
+    "lineage_memo_hit_frac": "down",
+}
+
+
+def _least_squares_slope(ys: list) -> float:
+    """Slope of y over index 0..n-1 (ordinary least squares)."""
+    n = len(ys)
+    xbar = (n - 1) / 2.0
+    ybar = sum(ys) / n
+    num = sum((i - xbar) * (y - ybar) for i, y in enumerate(ys))
+    den = sum((i - xbar) ** 2 for i in range(n))
+    return num / den if den else 0.0
+
+
+def analyze_trend(lines: list, window: int = 8,
+                  drift_threshold: float = 0.10,
+                  min_points: int = 4) -> dict:
+    """Sustained-drift detection the pairwise ``--baseline`` gate misses:
+    a metric that loses 3% every round never trips a 10% pair threshold
+    but is down 27% after nine rounds. Over the last ``window`` points of
+    each watched series: the least-squares slope (normalized to relative
+    drift across the window) AND last-vs-median must both point the bad
+    way beyond threshold — slope alone would flag an old, recovered dip;
+    last-vs-median alone would flag a single noisy round."""
+    series: dict[str, list] = {k: [] for k in TREND_SERIES}
+    for ln in lines:
+        if not isinstance(ln, dict):
+            continue
+        for key in TREND_SERIES:
+            v = ln.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                series[key].append(float(v))
+    out: dict = {
+        "schema": DOCTOR_SCHEMA,
+        "kind": "doctor_trend",
+        "window": window,
+        "threshold": drift_threshold,
+        "rounds_seen": len(lines),
+        "series": {},
+        "drifts": [],
+    }
+    for key, ys in series.items():
+        if len(ys) < min_points:
+            out["series"][key] = {"points": len(ys), "status": "insufficient"}
+            continue
+        win = ys[-window:]
+        med = sorted(win)[(len(win) - 1) // 2]
+        slope = _least_squares_slope(win)
+        scale = abs(med) or 1.0
+        rel_drift = slope * (len(win) - 1) / scale  # over the whole window
+        last_vs_median = (win[-1] - med) / scale
+        bad = TREND_SERIES[key]
+        sign = -1.0 if bad == "down" else 1.0
+        drifting = (
+            sign * rel_drift > drift_threshold
+            and sign * last_vs_median > drift_threshold / 2
+        )
+        entry = {
+            "points": len(win),
+            "median": round(med, 6),
+            "last": round(win[-1], 6),
+            "slope_per_round": round(slope, 6),
+            "rel_drift_over_window": round(rel_drift, 4),
+            "last_vs_median": round(last_vs_median, 4),
+            "bad_direction": bad,
+            "status": "drifting" if drifting else "stable",
+        }
+        out["series"][key] = entry
+        if drifting:
+            out["drifts"].append({"metric": key, **entry})
+    return out
+
+
+def format_trend(t: dict) -> str:
+    lines = [
+        f"doctor trend — {t['rounds_seen']} round(s), window {t['window']}, "
+        f"threshold {t['threshold']:.0%}"
+    ]
+    for key, s in sorted((t.get("series") or {}).items()):
+        if s.get("status") == "insufficient":
+            lines.append(f"  {key:<12} {s['points']} point(s) — insufficient "
+                         "data (need more rounds)")
+            continue
+        lines.append(
+            f"  {key:<12} [{s['status'].upper():<8}] last={s['last']:g} "
+            f"median={s['median']:g} drift/window={s['rel_drift_over_window']:+.1%} "
+            f"last-vs-median={s['last_vs_median']:+.1%}"
+        )
+    if t.get("drifts"):
+        lines.append(f"  SUSTAINED DRIFT in {len(t['drifts'])} metric(s) — "
+                     "the pairwise gate would have missed this")
+    else:
+        lines.append("  no sustained drift")
+    return "\n".join(lines)
+
+
+def run_trend_cli(args) -> int:
+    """``doctor trend [history.jsonl]``: exit 0 = stable/insufficient,
+    1 = sustained drift (the CI gate), 2 = unreadable history."""
+    path = getattr(args, "history", None) or ".bench/history.jsonl"
+    try:
+        with open(path) as f:
+            raw = f.read()
+    except OSError as e:
+        print(f"doctor trend: cannot read history {path!r}: {e}")
+        return 2
+    lines = []
+    for ln in raw.splitlines():
+        ln = ln.strip()
+        if not ln:
+            continue
+        try:
+            lines.append(json.loads(ln))
+        except json.JSONDecodeError:
+            continue  # a torn append must not invalidate the whole history
+    t = analyze_trend(
+        lines,
+        window=getattr(args, "window", 8) or 8,
+        drift_threshold=getattr(args, "drift_threshold", 0.10) or 0.10,
+    )
+    if getattr(args, "format", "text") == "json":
+        print(json.dumps(t, indent=2, sort_keys=True))
+    else:
+        print(format_trend(t))
+    return 1 if t["drifts"] else 0
+
+
+# ---------------------------------------------------------------------------
+# Rendering + CLI
+# ---------------------------------------------------------------------------
+
+def format_diagnosis(diag: dict, regressions: "list | None" = None) -> str:
+    lines = [f"doctor diagnosis (schema {diag.get('schema')})"]
+    bn = diag.get("bottleneck")
+    if bn:
+        agree = "" if bn.get("agrees_with_stats") else \
+            f"  [manifest recorded {bn.get('recorded')!r}]"
+        lines.append(f"  bottleneck: {bn['name']}{agree}")
+        for a in bn.get("attribution") or []:
+            share = f" ({a['share']:.0%})" if a.get("share") is not None else ""
+            lines.append(
+                f"    {a['component']:<12} {a['seconds']:9.3f}s{share}"
+            )
+    for name, h in sorted((diag.get("histograms_ms") or {}).items()):
+        if not h.get("count"):
+            continue
+        unit = "ms" if name.endswith("_s") else ""
+        lines.append(
+            f"  hist {name:<20} n={h['count']:<6} p50={h['p50']:g} "
+            f"p95={h['p95']:g} p99={h['p99']:g} max={h['max']:g} {unit}"
+        )
+    for m, r in sorted((diag.get("rpc_ms") or {}).items()):
+        lines.append(
+            f"  rpc  {m:<24} n={r.get('count', 0):<6} "
+            f"p50={r.get('p50_ms', 0)}ms p99={r.get('p99_ms', 0)}ms "
+            f"max={r.get('max_ms', 0)}ms"
+        )
+    for key, s in sorted((diag.get("skew") or {}).items()):
+        lines.append(
+            f"  skew {key}: score {s.get('score')} "
+            f"(max {s.get('max')} / mean {s.get('mean')}, n={s.get('n')})"
+        )
+    spec = diag.get("speculation")
+    if spec:
+        lines.append(
+            f"  speculation: {spec['won']} won / {spec['wasted']} wasted of "
+            f"{spec['attempts']} attempts (~{spec['time_saved_s']}s saved)"
+        )
+    st = diag.get("stragglers")
+    if st:
+        flagged = st.get("flagged") or []
+        lines.append(
+            f"  stragglers: {len(flagged)} flagged of "
+            f"{len(st.get('workers') or {})} workers "
+            f"(factor {st.get('factor')})"
+            + (f" — {', '.join('w' + str(w) for w in flagged)}" if flagged else "")
+        )
+    lease = diag.get("lease")
+    if lease:
+        lines.append(
+            f"  lease: timeout {lease['timeout_s']}s vs task p99 "
+            f"{lease['task_p99_s']}s ({lease.get('expiries', 0)} expiries)"
+        )
+    comp = diag.get("compile")
+    if comp:
+        lines.append(
+            f"  compile: {comp.get('count')} compiles {comp.get('total_s')}s "
+            f"({comp.get('cache_hits')} hits, {comp.get('cache_misses')} "
+            "misses)"
+        )
+    mem = diag.get("device_memory")
+    if mem:
+        lines.append(
+            f"  device memory high-water: "
+            f"{mem['high_water_bytes'] / 1e6:.1f} MB"
+        )
+    inc = diag.get("incomplete")
+    if inc:
+        lines.append(
+            f"  incomplete: tasks={inc.get('tasks')} flows={inc.get('flows')}"
+        )
+    for f in diag.get("findings") or []:
+        lines.append(f"  [{f['severity'].upper():<5}] {f['code']}: {f['message']}")
+    if not (diag.get("findings") or []):
+        lines.append("  no findings — run looks healthy")
+    if regressions is not None:
+        if regressions:
+            lines.append(f"  REGRESSIONS vs baseline ({len(regressions)}):")
+            for r in regressions:
+                chg = "new" if r["change"] is None else f"{r['change']:+.1%}"
+                lines.append(
+                    f"    {r['metric']}: {r['baseline']} -> {r['current']} "
+                    f"[{chg}, threshold {r['threshold']:.0%} {r['direction']}]"
+                )
+        else:
+            lines.append("  baseline: no watched metric regressed")
+    return "\n".join(lines)
+
+
+def run_cli(args) -> int:
+    """``doctor`` subcommand body. Exit 0 = diagnosis produced; 1 = a
+    --baseline watched metric regressed (the CI gate); 2 = unreadable
+    input. The literal target ``trend`` dispatches to the history
+    analyzer (run_trend_cli) instead of the manifest diagnosis."""
+    from mapreduce_rust_tpu_torch.runtime.telemetry import load_manifest
+
+    if getattr(args, "live", None):
+        return run_live_cli(args)
+    if args.manifest is None:
+        print("doctor: need a manifest path (or --live HOST:PORT, or "
+              "'trend')")
+        return 2
+    if args.manifest == "trend":
+        return run_trend_cli(args)
+    try:
+        manifest = load_manifest(args.manifest)
+    except (OSError, ValueError, json.JSONDecodeError) as e:
+        print(f"doctor: cannot read manifest {args.manifest!r}: {e}")
+        return 2
+
+    job_report = None
+    if getattr(args, "job_report", None):
+        try:
+            doc = load_manifest(args.job_report)
+            job_report = doc.get("report", doc)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"doctor: cannot read job report {args.job_report!r}: {e}")
+            return 2
+
+    trace_events = None
+    if getattr(args, "trace", None):
+        try:
+            trace_events = _load_trace_events(args.trace)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"doctor: cannot read trace {args.trace!r}: {e}")
+            return 2
+
+    diag = diagnose(
+        manifest, job_report=job_report, trace_events=trace_events,
+        straggler_factor=getattr(args, "straggler_factor", 2.0),
+    )
+
+    regressions = None
+    if getattr(args, "baseline", None):
+        try:
+            base = load_manifest(args.baseline)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"doctor: cannot read baseline {args.baseline!r}: {e}")
+            return 2
+        regressions = compare_manifests(
+            base, manifest,
+            threshold_scale=getattr(args, "threshold_scale", 1.0),
+        )
+        diag["regressions"] = regressions
+
+    if getattr(args, "format", "text") == "json":
+        print(json.dumps(diag, indent=2, sort_keys=True))
+    else:
+        print(format_diagnosis(diag, regressions))
+    return 1 if regressions else 0

@@ -3,7 +3,8 @@
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
 single-device engines (device engine and host-map engine, every app), the
 coordinator/worker task path, the multi-tenant job service, tracing, the
-run manifest and the live metrics read, with the reference's names, defaults and validation — except ``device``, which
+run manifest, the live metrics, the sampling profiler, the device trace
+and the provenance ledger read, with the reference's names, defaults and validation — except ``device``, which
 defaults to ``"cuda"``: the port's entry points run on the card and raise
 without one, unless the caller asks for the CPU with ``device="cpu"``.
 
@@ -30,6 +31,15 @@ def sync_dispatch_forced() -> bool:
     )
 
 
+def profile_forced() -> bool:
+    """``MR_PROFILE`` — process-tree opt-in to the sampling profiler: a
+    chaos child or SIGKILL-test subprocess inherits profiling without a
+    flag in its argv."""
+    return os.environ.get("MR_PROFILE", "").strip().lower() in (
+        "1", "true", "on", "yes"
+    )
+
+
 def _usable_cores() -> int:
     try:
         return len(os.sched_getaffinity(0))
@@ -43,9 +53,6 @@ NOT_PORTED = {
     "sharded_stream": False,           # halo-exchange ingestion
     "checkpoint_every_groups": 0,      # mesh checkpoint
     "resume": False,
-    "profile_dir": None,               # device profiler trace
-    "profile": False,                  # sampling profiler
-    "lineage": False,                  # provenance ledger
 }
 
 DEVICES = ("auto", "cuda", "cpu")
@@ -136,6 +143,31 @@ class Config:
     sanitize: bool = False          # opt-in thread-ownership sanitizer
                                     # (analysis/sanitize.py); MR_SANITIZE=1
                                     # turns it on for a process tree
+    profile_dir: Optional[str] = None  # write a torch.profiler Chrome
+                                    # trace of the stream phase here, with
+                                    # CUDA activity on a card (raises if
+                                    # the profiler cannot record it)
+    profile: bool = False           # in-process sampling profiler
+                                    # (runtime/prof.py): one thread walks
+                                    # sys._current_frames() at profile_hz,
+                                    # collapsed stacks keyed by the mr/
+                                    # plane-thread names, embedded in the
+                                    # manifest as stats.profile and in
+                                    # flight-recorder partials. Off by
+                                    # default (--profile / MR_PROFILE=1)
+    profile_hz: float = 97.0        # sampler rate; prime, so it never
+                                    # phase-locks with 1/10/100 Hz work
+    lineage: bool = False           # chunk-level data lineage
+                                    # (runtime/lineage.py): per-chunk
+                                    # blake2b content digests + partition
+                                    # routing recorded to
+                                    # {work_dir}/lineage.jsonl and
+                                    # summarized as stats.lineage; the
+                                    # `lineage` CLI answers forward/
+                                    # backward/blast-radius queries.
+                                    # Observational only: outputs stay
+                                    # byte-identical on and off
+                                    # (--lineage / MR_LINEAGE=1)
 
     # ---- Control plane (the Rust reference's timings) ----
     host: str = "127.0.0.1"
@@ -185,9 +217,6 @@ class Config:
     sharded_stream: bool = False
     checkpoint_every_groups: int = 0
     resume: bool = False
-    profile_dir: Optional[str] = None
-    profile: bool = False
-    lineage: bool = False
 
     # ---- Paths ----
     input_dir: str = "data"

@@ -47,6 +47,7 @@ the consumer loops, the flight recorder, and a run manifest
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import queue
@@ -60,7 +61,11 @@ import torch
 
 from mapreduce_rust_tpu_torch.apps.base import App
 from mapreduce_rust_tpu_torch.apps.word_count import WordCount
-from mapreduce_rust_tpu_torch.config import Config, sync_dispatch_forced
+from mapreduce_rust_tpu_torch.config import (
+    Config,
+    profile_forced,
+    sync_dispatch_forced,
+)
 from mapreduce_rust_tpu_torch.core.hashing import hash_words
 from mapreduce_rust_tpu_torch.core.kv import SENTINEL_I32, KVBatch
 from mapreduce_rust_tpu_torch.core.normalize import normalize_python
@@ -94,6 +99,11 @@ from mapreduce_rust_tpu_torch.runtime.dictionary import (
     remove_run_files,
 )
 from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
+from mapreduce_rust_tpu_torch.runtime.lineage import (
+    active_ledger,
+    chunk_digest,
+    lineage_forced,
+)
 from mapreduce_rust_tpu_torch.runtime.metrics import (
     JobStats,
     jobstats_collector,
@@ -447,6 +457,38 @@ def scan_keys(kind, parts) -> np.ndarray:
     return parts[2]
 
 
+def _routed_parts(keys, mask, reduce_n: int, range_mode: bool = False):
+    """Reduce partitions one chunk's (masked) keys route to — the
+    provenance ledger's chunk→partition edge. Hash apps route
+    k1 % reduce_n, so one vectorized unique over the scan's key column
+    answers it exactly; range apps route through sampler-derived
+    splitters on the WORD, which the scan result no longer carries — a
+    range chunk claims every partition (conservative: the blast radius
+    can only over-approximate, never miss a dependent partition)."""
+    if range_mode:
+        return list(range(reduce_n))
+    k1 = keys[:, 0] if getattr(keys, "ndim", 1) > 1 else keys
+    if mask is not None:
+        k1 = k1[mask]
+    n = len(k1)
+    if n == 0:
+        return []
+    # Exact answer, sampled fast path: a strided sample that already
+    # shows every partition proves the full set (an observed residue is
+    # definitely present; more than reduce_n is impossible) without
+    # touching the other keys. Only a skewed chunk that genuinely misses
+    # partitions pays the full bincount pass.
+    if n > 4096:
+        sample = np.asarray(k1[:: n // 2048], dtype=np.int64) % reduce_n
+        if len(np.unique(sample)) == reduce_n:
+            return list(range(reduce_n))
+    hits = np.bincount(
+        (np.asarray(k1, dtype=np.int64) % reduce_n).astype(np.intp),
+        minlength=reduce_n,
+    )
+    return [int(r) for r in np.flatnonzero(hits)]
+
+
 def fold_scan_into_dictionary(dictionary: Dictionary, mask, kind, parts) -> None:
     """Fold one tagged scan result ("raw", raw, ends, keys[, ...]) into the
     egress dictionary, restricted to the keys a filtering app keeps. mask
@@ -469,12 +511,20 @@ class _IngestStream:
     the consumer (bounded queue), and a thread pool runs the dictionary
     scans; scan results fold into the Dictionary only on the consumer
     thread. doc_id = doc_id_offset + position in inputs (the flat listing
-    of every corpus; a worker's map task passes its task id)."""
+    of every corpus; a worker's map task passes its task id).
+
+    With a provenance ledger active, each chunk's content digest is taken
+    on the pool thread that scans it (the payload is hot there) and
+    recorded in chunk order on the consumer, with the partitions its
+    keys route to."""
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
-                 dictionary: Dictionary, host_mask, doc_id_offset: int = 0) -> None:
+                 dictionary: Dictionary, host_mask, doc_id_offset: int = 0,
+                 lineage_range: bool = False) -> None:
         self.cfg = cfg
         self.stats = stats
+        self._ledger = active_ledger()  # None when the ledger is off
+        self._lineage_range = lineage_range
         self.dictionary = dictionary
         # Filtering apps (App.host_mask) restrict dictionary growth to
         # their query keys; the default keep-all mask folds via fast paths.
@@ -521,18 +571,36 @@ class _IngestStream:
         finally:
             self._put(_END)
 
+    @staticmethod
+    def _scan_lineage(payload: bytes):
+        """_scan_payload plus the chunk's content digest and size, both on
+        the pool thread; _fold_done strips the (dg, nbytes) prefix."""
+        return (chunk_digest(payload), len(payload), *_scan_payload(payload))
+
     def _fold_done(self, block: bool = False) -> None:
-        while self.scans and (block or self.scans[0].done()):
+        while self.scans and (block or self.scans[0][0].done()):
             # Dictionary state is only ever touched here, on the consumer.
-            kind, *rest = self.scans.popleft().result()
+            fut, doc_id = self.scans.popleft()
+            res = fut.result()
+            if self._ledger is not None:
+                dg, nb, kind, *rest = res
+            else:
+                kind, *rest = res
             t0 = time.perf_counter()
-            fold_scan_into_dictionary(self.dictionary,
-                                      self.host_mask(scan_keys(kind, rest)),
-                                      kind, rest)
+            keys = scan_keys(kind, rest)
+            mask = self.host_mask(keys)
+            fold_scan_into_dictionary(self.dictionary, mask, kind, rest)
             self.stats.fold_s += time.perf_counter() - t0
+            if self._ledger is not None:
+                self._ledger.record_chunk(
+                    doc_id, nb, dg,
+                    parts=_routed_parts(keys, mask, self.cfg.reduce_n,
+                                        self._lineage_range),
+                )
             block = False  # a blocking drain pops exactly one
 
     def __iter__(self):
+        scan = self._scan_lineage if self._ledger is not None else _scan_payload
         while True:
             t0 = time.perf_counter()
             with trace_span("ingest.wait"):
@@ -545,7 +613,8 @@ class _IngestStream:
                     raise self.err
                 return
             self.scans.append(
-                self.pool.submit(_scan_payload, bytes(chunk.data[: chunk.nbytes]))
+                (self.pool.submit(scan, bytes(chunk.data[: chunk.nbytes])),
+                 chunk.doc_id)
             )
             # Backpressure: each pending future pins a chunk-sized payload;
             # fold the oldest (blocking) once the backlog exceeds the pool.
@@ -564,7 +633,7 @@ class _IngestStream:
                     self.q.get_nowait()
             except queue.Empty:
                 pass
-            for f in self.scans:
+            for f, _doc in self.scans:
                 f.cancel()
             self.scans.clear()
         else:
@@ -648,7 +717,8 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
                 replay_chunk(chunk_host, doc_id)
 
     ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask,
-                           doc_id_offset)
+                           doc_id_offset,
+                           lineage_range=app.partition_mode == "range")
     try:
         for chunk in ingest:
             with trace_span("chunk.dispatch"):
@@ -1434,6 +1504,20 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
     stats.fold_shards = fold_n
     fold: "_FoldShardPlane | None" = None  # started right before the try
     dispatch = _DispatchPlane(cfg, app, stats, acc, device)
+    # Provenance: digest each window on ITS scan thread (the bytes are hot
+    # there), record on the router in window order, so the ledger is
+    # identical for any (workers, shards) combination.
+    ledger = active_ledger()
+    lineage_range = app.partition_mode == "range"
+
+    def lineage_record(doc_id, lin, keys, mask) -> None:
+        if lin is None:
+            return
+        dg, nb = lin
+        ledger.record_chunk(
+            doc_id, nb, dg,
+            parts=_routed_parts(keys, mask, cfg.reduce_n, lineage_range),
+        )
 
     def scan_window(item):
         # PURE: reads its window, returns its result and its own duration.
@@ -1446,10 +1530,16 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
                 out = (doc_id, "raw_sharded", scan_count_sharded_raw(window, fold.n))
             else:
                 out = (doc_id, "raw", scan_count_raw(window))
-        return (*out, time.perf_counter() - t0)
+            # Digest after the scan: the scan just faulted every window
+            # page in, so the sampled blake2b reads hot memory.
+            lin = (
+                (chunk_digest(window), int(window.size))
+                if ledger is not None else None
+            )
+        return (*out, lin, time.perf_counter() - t0)
 
     def consume(result) -> None:
-        doc_id, kind, res, scan_s = result
+        doc_id, kind, res, lin, scan_s = result
         stats.host_map_s += scan_s  # summed over workers
         stats.record_hist("host_map.scan_s", scan_s)
         t_glue = time.perf_counter()
@@ -1461,11 +1551,13 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
             if kind == "raw_sharded":
                 raw, ends, keys, counts, pos, shard_counts = res
                 mask = app.host_mask(keys)  # grouped rows; per-row exact
+                lineage_record(doc_id, lin, keys, mask)
                 fold.route_raw(raw, ends, keys, shard_counts, mask)
                 dispatch.submit((doc_id, "sharded", keys, counts, pos, mask))
             else:
                 raw, ends, keys, counts = res
                 mask = app.host_mask(keys)
+                lineage_record(doc_id, lin, keys, mask)
                 fold_scan_into_dictionary(dictionary, mask, "raw", (raw, ends, keys))
                 dispatch.submit((doc_id, "flat", keys, counts, None, mask))
         # Glue is the router's own work: time blocked on full shard or
@@ -1545,6 +1637,68 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
         # are reaped before the stream frame exits.
         pool.shutdown(wait=True, cancel_futures=True)
     acc.add_batch(dispatch.state)
+
+
+#: Chrome-trace categories of device activity in a torch.profiler trace.
+DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def _device_trace(profile_dir: "str | None", device: torch.device):
+    """``Config.profile_dir``: a ``torch.profiler`` trace of the block,
+    exported as a Chrome trace (``stream-p{pid}-{ns}.pt.trace.json``)
+    into ``profile_dir`` when it exits, also on failure. No shapes and
+    no stacks are recorded, so a long job's trace stays small.
+
+    It records CPU activity, and CUDA activity (kernels, copies, sets)
+    when ``device`` is a card. Kineto's device tracing covers the whole
+    process, so every kernel of the job is in the trace, whichever
+    thread launched it; CPU operators are recorded from the thread that
+    entered the profiler (the consumer or router) only, so the host
+    engine's merges show as kernels without the ``mr/dispatch``
+    thread's operators. On a card the trace must hold device activity:
+    a torch build that cannot record it (no CUPTI) raises before the job
+    streams, and a trace that comes back without a device event raises
+    after it, rather than passing off a CPU-only trace."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    activities = [ProfilerActivity.CPU]
+    on_card = device.type == "cuda"
+    if on_card:
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "profile_dir: this torch build cannot record CUDA activity "
+                "(no CUPTI); refusing to write a CPU-only device trace")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"stream-p{os.getpid()}-{time.time_ns()}.pt.trace.json")
+    prof = profile(activities=activities, record_shapes=False, with_stack=False)
+    try:
+        with prof:
+            yield
+            if on_card:
+                torch.cuda.synchronize(device)  # every kernel lands in the trace
+    finally:
+        prof.export_chrome_trace(path)
+        log.info("device trace → %s", path)
+    if on_card and not count_device_events(path):
+        raise RuntimeError(
+            f"profile_dir: {path} holds no CUDA activity; the profiler did "
+            "not record the card")
+
+
+def count_device_events(trace_path: str) -> int:
+    """Device activity events (kernels, copies, sets) in a torch.profiler
+    Chrome trace."""
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents") or []
+    return sum(1 for e in events if e.get("cat") in DEVICE_TRACE_CATS)
 
 
 def run_job(
@@ -1642,11 +1796,42 @@ def run_job(
         registry.add_collector(jobstats_collector(stats))
         if tracer is not None:
             tracer.metrics_registry = registry  # partials keep the series
+    # Sampling profiler: one thread walks sys._current_frames() at
+    # profile_hz, collapsed stacks keyed by the mr/ plane-thread names.
+    # Observational only — outputs stay byte-identical on and off. Lands
+    # in the manifest as stats.profile (build_manifest reads the
+    # still-active profiler).
+    sprof = None
+    if cfg.profile or profile_forced():
+        from mapreduce_rust_tpu_torch.runtime.prof import start_profiler
+
+        sprof = start_profiler(cfg.profile_hz)
+        if tracer is not None:
+            tracer.profiler = sprof  # partials keep the flamegraph
+            sprof.tracer = tracer    # per-plane self-time counter tracks
+    # Provenance ledger: per-chunk content digests + partition routing
+    # recorded from the loops that tick the flight recorder. Observational
+    # only. Lands in the manifest as stats.lineage (build_manifest reads
+    # the still-active ledger) and in partials as body["lineage"].
+    ledger = None
+    if cfg.lineage or lineage_forced():
+        from mapreduce_rust_tpu_torch.runtime.lineage import (
+            LEDGER_NAME,
+            start_ledger,
+        )
+
+        os.makedirs(cfg.work_dir, exist_ok=True)
+        ledger = start_ledger(os.path.join(cfg.work_dir, LEDGER_NAME),
+                              inputs=inputs, reduce_n=cfg.reduce_n)
+        if tracer is not None:
+            tracer.lineage = ledger  # partials keep the provenance tail
     table: dict = {}
     output_files: list[str] = []
 
     try:
-        with stats.phase("stream"):
+        # The device trace wraps the stream phase, so its export is not
+        # counted in the phase's seconds.
+        with _device_trace(cfg.profile_dir, device), stats.phase("stream"):
             if cfg.map_engine == "host":
                 _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
             else:
@@ -1680,6 +1865,20 @@ def run_job(
         acc.remove_runs()
         dictionary.remove_runs()
         _collect_spill_stats(stats, dictionary, acc)
+        if sprof is not None:
+            # Freeze sampling before the artifact flush: the profile
+            # covers the job, not manifest serialization. The stopped
+            # profiler stays in the global slot so build_manifest embeds
+            # its final aggregate.
+            sprof.stop()
+        if ledger is not None:
+            # Seal the jsonl (end record: folded corpus content digest)
+            # before the flush; the closed ledger stays in the global
+            # slot so build_manifest embeds stats.lineage.
+            try:
+                ledger.close()
+            except Exception:
+                log.warning("lineage ledger close failed", exc_info=True)
         if tracer is not None:
             stop_tracing()
         if tracer is not None or cfg.manifest_path:
@@ -1702,6 +1901,15 @@ def run_job(
             # After the flush (build_manifest read the still-active ring);
             # compare-and-clear, a co-hosted worker may own the slot now.
             stop_metrics(registry)
+        if sprof is not None:
+            # Same order and compare-and-clear discipline as the registry.
+            from mapreduce_rust_tpu_torch.runtime.prof import stop_profiler
+
+            stop_profiler(sprof)
+        if ledger is not None:
+            from mapreduce_rust_tpu_torch.runtime.lineage import stop_ledger
+
+            stop_ledger(ledger)
     return JobResult(stats=stats, table=table, output_files=output_files)
 
 
@@ -1711,6 +1919,7 @@ def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
     ``app.finalize``; returns the word → value table and the output files.
     A spilled dictionary (an app that overrides finalize, like top_k) is
     rehydrated once from its sorted stream — exact, but unbounded."""
+    ledger = active_ledger()
     table: dict = {}
     output_files: list[str] = []
     with stats.phase("finalize"):
@@ -1745,6 +1954,10 @@ def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
                         written += len(line) + 1
                 # Per-partition output bytes: the reduce-side skew signal.
                 stats.partition_bytes.append(written)
+                if ledger is not None:
+                    # Egress claim: partition r's bytes + the chunks whose
+                    # routed keys contributed.
+                    ledger.record_partition(r, written)
                 output_files.append(path)
     return table, output_files
 
@@ -1769,6 +1982,7 @@ def _stream_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulato
     import shutil
     import tempfile
 
+    ledger = active_ledger()
     with stats.phase("finalize"):
         rows = acc.fold_arrays()  # sorted by (k1, k2[, value])
         is_distinct = app.combine_op == "distinct"
@@ -1844,6 +2058,10 @@ def _stream_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulato
                 lines.sort()
                 buf = b"\n".join(lines) + b"\n" if lines else b""
                 stats.partition_bytes.append(len(buf))
+                if ledger is not None:
+                    # Egress claim, streaming tier: same contract as the
+                    # in-RAM path's record_partition.
+                    ledger.record_partition(r, len(buf))
                 path = os.path.join(cfg.output_dir, f"mr-{r}.txt")
                 with open(path, "wb") as f:
                     f.write(buf)

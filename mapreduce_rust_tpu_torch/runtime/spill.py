@@ -44,6 +44,8 @@ from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
 #: checks before trusting a byte.
 RUN_MAGIC = b"MRSP"
 RUN_VERSION = 1
+#: The run format a manifest's spill_split names.
+RUN_FORMAT = f"binary-v{RUN_VERSION}"
 _HEADER_BYTES = 40
 
 #: Merge block size: large enough that the per-block Python overhead

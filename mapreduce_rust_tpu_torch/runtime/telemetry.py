@@ -886,10 +886,20 @@ def build_manifest(cfg, stats=None, app_name: str | None = None,
                 stats_block["timeseries"] = reg.timeseries_dict()
     except Exception:
         pass  # telemetry stays best-effort
-    # Sampling profile: the reference embeds the active profiler's
-    # stats.profile here. The sampling profiler is not ported
-    # (Config.profile stays in NOT_PORTED), so this process never has
-    # one and the branch reads "no profiler".
+    # Sampling profile — same pattern: whatever profiler is active in
+    # THIS process lands as stats.profile (per-plane self-time split,
+    # top-N frames, collapsed stacks), read back by the torch-free
+    # `prof` subcommand and the doctor's roofline findings.
+    try:
+        from mapreduce_rust_tpu_torch.runtime.prof import active_profiler
+
+        p = active_profiler()
+        if p is not None:
+            stats_block = m.setdefault("stats", {})
+            if "profile" not in stats_block:
+                stats_block["profile"] = p.profile_dict()
+    except Exception:
+        pass  # telemetry stays best-effort
     # Provenance ledger — same pattern: whatever ledger is
     # active in THIS process lands as stats.lineage (counts + folded
     # corpus digests + the jsonl path), read back by the jax-free
@@ -967,8 +977,21 @@ def flush_run_artifacts(cfg, tracer=None, tag: str | None = None,
             ))
             if logger:
                 logger.info("manifest → %s", path)
-            # The reference writes the profiler's collapsed stacks beside
-            # the manifest here; no profiler is ported (see build_manifest).
+            # Collapsed-stack export beside the manifest: flamegraph.pl /
+            # speedscope load the .folded directly; `prof --folded`
+            # re-derives the same lines from the manifest's stats.profile
+            # for files shipped elsewhere.
+            try:
+                from mapreduce_rust_tpu_torch.runtime.prof import active_profiler
+
+                p = active_profiler()
+                if p is not None:
+                    folded = os.path.splitext(path)[0] + ".folded"
+                    p.write_folded(folded)
+                    if logger:
+                        logger.info("profile → %s", folded)
+            except Exception:
+                pass  # telemetry stays best-effort
         except Exception as e:
             if logger:
                 logger.warning("manifest write failed: %s", e)

@@ -212,6 +212,22 @@ for engine in ("device", "host"):
                          map_engine=engine), app=get_app("sort"))
     lines = b"".join(open(p, "rb").read() for p in res.output_files).split()
     assert lines == sorted([b"hello"] * 3 + [b"world", "café".encode()]), lines
+    # The profiling and provenance plane: the sampling profiler, a device
+    # trace and the lineage ledger, with a manifest the analysis tools read.
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2], work_dir=sys.argv[2] + "/pw",
+                         map_engine=engine, profile=True, lineage=True,
+                         profile_dir=sys.argv[2] + "/tp",
+                         manifest_path=sys.argv[2] + "/pm.json"))
+    assert res.table == {b"hello": 3, b"world": 1, "café".encode(): 1}, res.table
+import mapreduce_rust_tpu_torch.analysis.lineage
+import mapreduce_rust_tpu_torch.analysis.roofline
+import mapreduce_rust_tpu_torch.runtime.fleet
+import mapreduce_rust_tpu_torch.runtime.prof
+from mapreduce_rust_tpu_torch.__main__ import main as cli_main
+assert cli_main(["prof", sys.argv[2] + "/pm.json", "--roofline", "--machine",
+                 sys.argv[2] + "/machine.json"]) == 0
+assert cli_main(["lineage", sys.argv[2] + "/pw", "--forward", "0"]) == 0
 # The task path and the observability core: a one-worker cluster on the
 # device engine, traced, with a manifest.
 import asyncio
