@@ -45,15 +45,17 @@ one JSON line; any failure raises and ends the run:
               scan kernel's mean in-job time, the per-plane self time and
               top frames of the sampling profile, and the wall beside
               main's (the three switches' tax, reported, not gated);
-6. evict    — the same corpus with merge_capacity=2^18, so evicted tails
+6. evict    — merge_capacity=2^18 (on 64 MiB, see host-evict), so evicted tails
               flow to the host accumulator on every merge; exact as well;
-7. host     — the same corpus through the host-map engine
+7. host     — zipf-256M through the host-map engine
               (map_engine="host", default host Config: auto workers and
               shards, async dispatch, coalescing); exact, no scan kernel
               launched, the native scan's arenas live;
 8. host-evict — the host engine with merge_capacity=2^18, no coalescing,
               sync dispatch: the pinned stager's event barrier on every
-              merge; exact, keys spilled;
+              merge; exact, keys spilled. It and evict run after the apps,
+              on documents 0-1 of zipf-ii-256M (64 MiB, cut from zipf-256M
+              to make room for the mesh phases);
 9. ii       — a seeded 256 MiB Zipf corpus in 8 documents (the generator
               of the reference bench's inverted-index leg) through
               inverted_index on the device engine, default Config: every
@@ -103,8 +105,34 @@ one JSON line; any failure raises and ends the run:
    spill-topk — top_k on documents 0-1 with a 2^17-word dictionary
               budget, through the rehydrate path (top_k overrides
               finalize);
-12. cluster — the coordinator/worker task path on the zipf-256M corpus (4
-              files: map_n 4, reduce_n 8, default Config): a port
+12. mesh    — the single-process mesh, four shards all on the one card
+              (make_mesh places shard i on cuda:(i % cards)), each phase
+              printing its shard → device map and the card count, wall,
+              stream, all_to_all_s, device_wait_s, wire bytes, replays and
+              mesh_shard_rows, each launching tokenize_hash once per shard
+              per round:
+   mesh       — zipf-256M, default Config, mesh_shape 4: exact and each
+              mr-{r}.txt byte-identical to main's;
+   sharded    — the same with sharded_stream (each 16 MiB window cut into
+              four shards anywhere, the halo repairing the seams): exact,
+              byte-identical to main's, no halo truncation, forced group
+              cuts reported;
+   mesh-ii    — inverted_index on zipf-ii-256M against the presence
+              matrix (the distinct op through the shuffle);
+   mesh-replay — documents 0-1 of zipf-ii-256M in 1 MiB chunks, the
+              partial capacity at the median of the groups' largest
+              per-chunk distinct counts and a bucket slack of 0.5, so
+              both replay tiers run: exact;
+   mesh-topk  — top_k (k = 20) on documents 0-1: exact, and the driver's
+              log shows the per-shard selection was taken;
+   mesh-ckpt  — ``run --mesh 4 --checkpoint-every 1`` through the CLI on
+              documents 0-1, SIGKILLed once driver.ckpt.npz exists, then
+              ``--resume``: exact, and the resumed process's manifest
+              counts 4 launches per round it ran, for the groups after
+              the checkpoint;
+13. cluster — the coordinator/worker task path on documents 0-1 of
+              zipf-ii-256M (64 MiB in 2 files: map_n 2,
+              reduce_n 8, default Config): a port
               Coordinator.serve() and two Worker(engine="device") as
               asyncio tasks in this process, worker_n 2; every mr-{r}.txt
               exact, tokenize_hash launched at least once per map-task
@@ -121,25 +149,25 @@ one JSON line; any failure raises and ends the run:
               lease; outputs exact, job_report.json shows a lease expiry
               and a re-execution, the victim died by SIGKILL and the
               survivor exited 0; every process has a timeout;
-13. service — the multi-tenant job service in this process: a port
+14. service — the multi-tenant job service in this process: a port
               JobService.serve() (service_max_jobs 3, in-flight budget
               1024 MiB) and two ServiceWorker(engine="device") as asyncio
-              tasks; three jobs at once — word_count on zipf-256M
-              (reduce_n 8), inverted_index on zipf-ii-256M and grep on its
-              documents 0-3 with the grep phase's query — each exact
+              tasks; three jobs at once on documents 0-1 of zipf-ii-256M
+              (64 MiB each) — word_count (reduce_n 8),
+              inverted_index and grep with the grep phase's query — each exact
               against its truth, no re-execution, tokenize_hash launched
               once per map-task chunk of the three jobs; then the
               word_count spec again, served from the result cache with
               zero new grants and no launch; wall, each job's queue wait
               and execution seconds, peak device memory;
-14. cli     — a few-MB unicode/punctuation corpus through
+15. cli     — a few-MB unicode/punctuation corpus through
               ``python -m mapreduce_rust_tpu_torch run``, once per engine,
               checked against the port's reference_word_counts; then
               ``--app grep --query ...`` and ``--app join --input a=DIR
               b=DIR`` on it, against oracles from reference_word_counts
               per file; then a budgeted run (``--accum-budget-mb 0
               --dict-budget-words 4096``) and ``clean``;
-15. service-drain — the service through the CLI in subprocesses on that
+16. service-drain — the service through the CLI in subprocesses on that
               corpus: ``service --max-jobs 1``, two word_count jobs
               submitted (one queues), SIGTERM while it is queued, then two
               ``worker --service --engine device``: the service finishes
@@ -154,7 +182,7 @@ Every job phase checks unknown_keys == 0 and hash_collisions == 0 and
 that no spill run file is left in its work dir, and prints its wall,
 phase seconds, device_wait_s, spills, the spill tiers' runs, seconds and
 bytes, and tokenize_hash launches (at least the chunk count on the device
-engine, 0 on the host engine).
+engine, 0 on the host engine; on the mesh 4 per round).
 
 Then the tokenize_hash launches of every driven phase, the card's
 nvidia-smi line, the ``{"kernels": [...]}`` line, and last
@@ -166,6 +194,7 @@ a kernel with its plain version are not counted.
 from __future__ import annotations
 
 import json
+import logging
 import pathlib
 import re
 import shutil
@@ -583,20 +612,58 @@ def write_ii_corpus(dirpath: pathlib.Path):
     return presence, counts01
 
 
-def check_zipf_outputs(files, truth) -> int:
+def _line_table(files):
+    """(bytes, line starts, line ends) of every file's lines, concatenated
+    in file order; each file must be empty or end in a newline. Line i is
+    bytes[starts[i]:ends[i]], its newline at ends[i]."""
     import numpy as np
 
-    got = np.zeros(ZIPF_VOCAB, dtype=np.int64)
-    lines = 0
+    blobs = []
     for path in files:
-        with open(path, "rb") as fh:
-            for line in fh:
-                w, v = line.rsplit(b" ", 1)
-                check(len(w) == 7 and w[:1] == b"w", f"unexpected word {w!r} in {path}")
-                rank = int(w[1:], 16)
-                check(got[rank] == 0, f"word {w!r} emitted twice")
-                got[rank] = int(v)
-                lines += 1
+        data = pathlib.Path(path).read_bytes()
+        check(not data or data.endswith(b"\n"), f"{path} does not end in a newline")
+        blobs.append(data)
+    arr = np.frombuffer(b"".join(blobs), dtype=np.uint8)
+    ends = np.flatnonzero(arr == 10)
+    starts = np.concatenate([np.zeros(min(len(ends), 1), np.int64), ends[:-1] + 1])
+    return arr, starts, ends
+
+
+def _line_ranks(arr, starts, ends):
+    """The rank of every line's word, each line 'w' + 6 lowercase hex digits
+    + a space + at least one more byte; no rank twice."""
+    import numpy as np
+
+    check(bool((ends - starts >= 9).all()), "an output line is too short")
+    word = arr[starts[:, None] + np.arange(8)]
+    hexd = word[:, 1:7]
+    check(bool((word[:, 0] == ord("w")).all() and (word[:, 7] == 32).all()
+               and (((hexd >= ord("0")) & (hexd <= ord("9")))
+                    | ((hexd >= ord("a")) & (hexd <= ord("f")))).all()),
+          "an output line's word is not w%06x")
+    ranks = _hex_ranks(word)
+    check(len(np.unique(ranks)) == len(ranks), "a word was emitted twice")
+    return ranks
+
+
+def check_zipf_outputs(files, truth) -> int:
+    """Every line 'w%06x COUNT', each word once, the counts equal to the
+    generator's; returns the line count."""
+    import numpy as np
+
+    arr, starts, ends = _line_table(files)
+    ranks = _line_ranks(arr, starts, ends)
+    # The count: the decimal digits after the space, parsed column by column.
+    width = ends - starts - 8
+    value = np.zeros(len(ranks), dtype=np.int64)
+    for k in range(int(width.max(initial=0))):
+        live = np.flatnonzero(width > k)
+        digit = arr[starts[live] + 8 + k].astype(np.int64) - ord("0")
+        check(bool(((digit >= 0) & (digit <= 9)).all()), "an output count is not decimal")
+        value[live] = value[live] * 10 + digit
+    got = np.zeros(ZIPF_VOCAB, dtype=np.int64)
+    got[ranks] = value
+    lines = len(ranks)
     check(lines == int((truth > 0).sum()), f"{lines} output lines, "
           f"{int((truth > 0).sum())} distinct words generated")
     check(np.array_equal(got, truth), "output counts differ from the generator's")
@@ -647,7 +714,9 @@ def drive_job(name: str, work: pathlib.Path, check_outputs, app=None,
            "host_accum_budget_mb": cfg.host_accum_budget_mb,
            "dictionary_budget_words": cfg.dictionary_budget_words,
            "spill_async": cfg.spill_async}
-    if cfg.map_engine == "device":
+    if cfg.mesh_shape:
+        out.update(_mesh_fields(name, cfg, s, launches))
+    if cfg.map_engine == "device" or cfg.mesh_shape:
         check(launches["tokenize_hash"] >= s.chunks > 0, f"{name}: tokenize_hash launched "
               f"{launches['tokenize_hash']} times for {s.chunks} chunks")
         out.update(chunk_bytes=cfg.chunk_bytes,
@@ -669,6 +738,30 @@ def drive_job(name: str, work: pathlib.Path, check_outputs, app=None,
     return out
 
 
+def _mesh_fields(name: str, cfg, s, launches) -> dict:
+    """A mesh run's own checks and numbers: one scan-kernel launch per
+    shard per round (replay rounds included), no halo truncation, and the
+    shard → device map beside the card count."""
+    import torch
+
+    from mapreduce_rust_tpu_torch.parallel.shuffle import make_mesh
+
+    mesh = make_mesh(cfg.mesh_shape, cfg.device)
+    check(launches["tokenize_hash"] == mesh.size * s.mesh_rounds > 0,
+          f"{name}: tokenize_hash launched {launches['tokenize_hash']} times in "
+          f"{s.mesh_rounds} rounds of {mesh.size} shards")
+    check(s.halo_truncations == 0, f"{name}: {s.halo_truncations} halo truncations")
+    return {"mesh_shape": mesh.size, "shard_devices": [str(dev) for dev in mesh.devices],
+            "device_count": torch.cuda.device_count(), "sharded_stream": cfg.sharded_stream,
+            "stream_s": s.phase_seconds["stream"], "all_to_all_s": s.all_to_all_s,
+            "mesh_rounds": s.mesh_rounds, "shuffle_wire_bytes": s.shuffle_wire_bytes,
+            "bucket_skew_replays": s.bucket_skew_replays,
+            "halo_truncations": s.halo_truncations, "forced_cuts": s.forced_cuts,
+            "mesh_shard_rows": s.mesh_shard_rows,
+            "partial_capacity": cfg.effective_partial_capacity(),
+            "bucket_capacity_factor": cfg.bucket_capacity_factor}
+
+
 def zipf_check(truth):
     return lambda res: {"output_lines": check_zipf_outputs(res.output_files, truth)}
 
@@ -683,30 +776,32 @@ def _hex_ranks(arr):
     return (hexd * np.power(16, np.arange(5, -1, -1, dtype=np.int64))).sum(axis=1)
 
 
-def _rank(word: bytes) -> int:
-    check(len(word) == 7 and word[:1] == b"w", f"unexpected word {word!r}")
-    return int(word[1:], 16)
-
-
 def ii_check(presence):
-    """Every posting list equal to its row of the presence matrix."""
+    """Every line 'w%06x d,d,...' (single-digit doc ids, strictly
+    increasing), each word once, the posting lists equal to the presence
+    matrix's rows."""
     import numpy as np
 
     def run(res):
+        arr, starts, ends = _line_table(res.output_files)
+        ranks = _line_ranks(arr, starts, ends)
+        width = ends - starts - 8
+        check(bool((width % 2 == 1).all()), "a posting list is out of format")
+        n_docs = (width + 1) // 2
+        line = np.repeat(np.arange(len(ranks)), n_docs)
+        nth = np.arange(int(n_docs.sum())) - np.repeat(np.cumsum(n_docs) - n_docs, n_docs)
+        pos = starts[line] + 8 + 2 * nth
+        docs = arr[pos].astype(np.int64) - ord("0")
+        later = nth > 0
+        check(bool(((docs >= 0) & (docs < presence.shape[1])).all()
+                   and (arr[pos[later] - 1] == ord(",")).all()),
+              "a posting list is out of format")
+        check(bool((docs[later] > docs[np.flatnonzero(later) - 1]).all()),
+              "a posting list is not sorted")
         got = np.zeros_like(presence)
-        lines = 0
-        for path in res.output_files:
-            with open(path, "rb") as fh:
-                for line in fh:
-                    w, v = line.rsplit(b" ", 1)
-                    r = _rank(w)
-                    check(not got[r].any(), f"word {w!r} emitted twice")
-                    docs = [int(x) for x in v.split(b",")]
-                    check(docs == sorted(set(docs)), f"posting list of {w!r} not sorted")
-                    got[r, docs] = True
-                    lines += 1
+        got[ranks[line], docs] = True
         check(np.array_equal(got, presence), "posting lists differ from the generator's")
-        return {"output_lines": lines, "posting_pairs": int(presence.sum()),
+        return {"output_lines": len(ranks), "posting_pairs": int(presence.sum()),
                 "docs": presence.shape[1]}
 
     return run
@@ -1271,6 +1366,177 @@ def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> l
     return runs
 
 
+#: The mesh phases' shard count: four shards, all on the one card.
+MESH_SHARDS = 4
+#: mesh-replay's chunk size: 1 MiB makes 17 groups of documents 0-1.
+REPLAY_CHUNK = 1 << 20
+
+
+def _replay_capacity(corpus: pathlib.Path, chunk_bytes: int) -> tuple[int, list[int]]:
+    """A partial capacity that some groups of MESH_SHARDS chunks pass and
+    others fit: the median of the groups' largest per-chunk distinct-word
+    counts (the native scan's, on the chunker's chunks). With a bucket
+    slack of 0.5 a group that fits still overflows a bucket, so both
+    replay tiers run."""
+    from mapreduce_rust_tpu_torch.native.host import scan_unique_raw
+    from mapreduce_rust_tpu_torch.runtime.chunker import chunk_stream
+
+    distinct = []
+    for doc, path in enumerate(sorted(corpus.glob("*.txt"))):
+        with open(path, "rb") as f:
+            for chunk in chunk_stream(f, doc, chunk_bytes):
+                distinct.append(len(scan_unique_raw(bytes(chunk.data[: chunk.nbytes]))[1]))
+    maxes = sorted(max(distinct[i: i + MESH_SHARDS])
+                   for i in range(0, len(distinct), MESH_SHARDS))
+    return maxes[(len(maxes) - 1) // 2], maxes
+
+
+class _LogRecords(logging.Handler):
+    """The messages the port's logger emits while attached."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.messages: list[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def phase_mesh(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
+    """The single-process mesh (parallel/shuffle.py), MESH_SHARDS shards on
+    the one card: zipf-256M through the chunked mesh and the halo-sharded
+    stream, each exact and byte-identical to the main phase's files;
+    inverted_index on zipf-ii-256M; both replay tiers and the top-k
+    selection on documents 0-1. Each launches tokenize_hash once per shard
+    per round."""
+    from mapreduce_rust_tpu_torch.apps import get_app
+    from mapreduce_rust_tpu_torch.runtime.metrics import log as port_log
+
+    main_digests = _digests(work / "main-out")
+
+    def identical(name: str):
+        def run(res):
+            fields = zipf_check(truth)(res)
+            check(_digests(work / f"{name}-out") == main_digests,
+                  f"{name}: mr-{{r}}.txt differ from the main phase's")
+            return {**fields, "identical_to_main": True}
+
+        return run
+
+    runs = [drive_job("mesh", work, identical("mesh"), corpus=corpus,
+                      mesh_shape=MESH_SHARDS)]
+    sharded = drive_job("sharded", work, identical("sharded"), corpus=corpus,
+                        mesh_shape=MESH_SHARDS, sharded_stream=True)
+    runs.append(sharded)
+    runs.append(drive_job("mesh-ii", work, ii_check(ctx["presence"]),
+                          app=get_app("inverted_index"), corpus=ctx["ii_dir"],
+                          mesh_shape=MESH_SHARDS))
+    t0 = time.perf_counter()
+    cap, maxes = _replay_capacity(ctx["top_dir"], REPLAY_CHUNK)
+    probe_s = time.perf_counter() - t0
+    replay = drive_job("mesh-replay", work, zipf_check(ctx["counts01"]),
+                       corpus=ctx["top_dir"], mesh_shape=MESH_SHARDS,
+                       chunk_bytes=REPLAY_CHUNK, partial_capacity=cap,
+                       bucket_capacity_factor=0.5)
+    check(replay["partial_overflow_replays"] > 0 and replay["bucket_skew_replays"] > 0,
+          f"mesh-replay: replays {replay['partial_overflow_replays']} partial, "
+          f"{replay['bucket_skew_replays']} skew")
+    runs.append(replay)
+    records = _LogRecords()
+    port_log.addHandler(records)
+    level = port_log.level
+    port_log.setLevel(logging.INFO)
+    try:
+        topk = drive_job("mesh-topk", work, topk_check(ctx["counts01"], 20),
+                         app=get_app("top_k", k=20), corpus=ctx["top_dir"],
+                         mesh_shape=MESH_SHARDS)
+    finally:
+        port_log.removeHandler(records)
+        port_log.setLevel(level)
+    taken = [m for m in records.messages if m.startswith("device top-20 selection:")]
+    check(taken, f"mesh-topk: no device selection in the driver's log: {records.messages}")
+    runs.append(topk)
+    # What the two phases' own lines do not show: how mesh-replay's
+    # capacity was chosen and mesh-topk's log record.
+    emit({"phase": "mesh-checks", "replay_partial_capacity": cap,
+          "replay_group_max_distinct": maxes, "replay_probe_s": probe_s,
+          "topk_selection": taken[0]})
+    return runs
+
+
+def phase_mesh_ckpt(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
+    """The CLI's ``run --mesh 4 --checkpoint-every 1`` on documents 0-1 of
+    zipf-ii-256M, SIGKILLed as soon as its first checkpoint is on disk,
+    then ``--resume``: exact, and the resumed process's manifest counts one
+    tokenize_hash launch per shard per round it ran, the rounds of the
+    groups after the checkpoint."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.parallel.shuffle import make_mesh
+
+    out_dir, work_dir = work / "ckpt-out", work / "ckpt-work"
+    manifest = work / "ckpt-manifest.json"
+    cmd = [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--input", str(corpus),
+           "--output", str(out_dir), "--work", str(work_dir), "--reduce-n", "8",
+           "--mesh", str(MESH_SHARDS), "--checkpoint-every", "1"]
+    ckpt = work_dir / "driver.ckpt.npz"
+    t0 = time.perf_counter()
+    with open(work / "ckpt-first.log", "wb") as log:
+        first = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        while not ckpt.exists() and first.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        first.send_signal(signal.SIGKILL)
+        rc_first = first.wait(timeout=60)
+    finally:
+        if first.poll() is None:
+            first.kill()
+            first.wait()
+    killed_s = time.perf_counter() - t0
+    if rc_first != -signal.SIGKILL:
+        print((work / "ckpt-first.log").read_bytes()[-3000:].decode(errors="replace"),
+              file=sys.stderr)
+    check(rc_first == -signal.SIGKILL, f"mesh-ckpt: the first run exited {rc_first}, "
+          "not by SIGKILL after a checkpoint")
+    with np.load(ckpt) as z:
+        groups_done = int(z["groups_done"])
+    t1 = time.perf_counter()
+    r = subprocess.run([*cmd, "--resume", "--manifest", str(manifest)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    resumed_s = time.perf_counter() - t1
+    check(r.returncode == 0, f"mesh-ckpt: the resumed run failed ({r.returncode}):\n"
+          f"{r.stderr[-3000:]}")
+    files = sorted(str(p) for p in out_dir.glob("mr-*.txt"))
+    lines = check_zipf_outputs(files, truth)
+    m = json.loads(manifest.read_text())
+    s = m["stats"]
+    launches = m["kernel_launches"]["tokenize_hash"]
+    groups = -(-_map_chunks(sorted(corpus.glob("*.txt")), Config.chunk_bytes) // MESH_SHARDS)
+    ran = s["mesh_rounds"] - s["partial_overflow_replays"] - s["bucket_skew_replays"]
+    check(0 < groups_done < groups, f"mesh-ckpt: killed after {groups_done} of {groups} groups")
+    check(ran == groups - groups_done, f"mesh-ckpt: the resumed run ran {ran} groups, "
+          f"{groups - groups_done} were left")
+    check(launches == MESH_SHARDS * s["mesh_rounds"] > 0,
+          f"mesh-ckpt: {launches} launches in {s['mesh_rounds']} rounds")
+    check(m["platform"].get("device_name") == torch.cuda.get_device_name(0),
+          f"mesh-ckpt: the manifest names no card: {m['platform']}")
+    mesh = make_mesh(MESH_SHARDS, "cuda")
+    out = {"phase": "mesh-ckpt", "exact": True, "map_engine": "device",
+           "first_run_killed_after_s": killed_s, "groups_done_at_kill": groups_done,
+           "groups": groups, "resumed_wall_s": resumed_s,
+           "resumed_stream_s": s["phase_seconds"]["stream"],
+           "resumed_rounds": s["mesh_rounds"], "launches": {"tokenize_hash": launches},
+           "output_lines": lines, "shard_devices": [str(dev) for dev in mesh.devices],
+           "device_count": torch.cuda.device_count()}
+    emit(out)
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -1316,7 +1582,8 @@ def _map_chunks(inputs, chunk_bytes: int) -> int:
 
 def phase_cluster(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
     """The coordinator and two device-engine workers as asyncio tasks in
-    this process, over TCP, on the zipf corpus with the default Config."""
+    this process, over TCP, on ``corpus`` (one map task per file) with the
+    default Config."""
     import asyncio
 
     import torch
@@ -1449,13 +1716,13 @@ def _job_totals(work_dir: pathlib.Path, jid: str) -> dict:
             for ph, t in report["totals"].items()}
 
 
-def phase_service(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> dict:
+def phase_service(work: pathlib.Path, ctx: dict) -> dict:
     """The multi-tenant job service in this process: a port JobService.serve()
     and two ServiceWorker(engine="device") as asyncio tasks, three jobs at
-    once (word_count on zipf-256M, inverted_index on zipf-ii-256M, grep on
-    its documents 0-3), each exact against its generator's truth; then the
-    word_count spec again, which the result cache must serve with zero new
-    grants."""
+    once on documents 0-1 of zipf-ii-256M (word_count, inverted_index and
+    grep), each exact against its generator's truth; then
+    the word_count spec again, which the result cache must serve with zero
+    new grants."""
     import asyncio
     import types
 
@@ -1469,18 +1736,20 @@ def phase_service(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) ->
 
     out_dir, work_dir = work / "service-out", work / "service-work"
     cfg = Config(port=_free_port(), service_max_jobs=3, service_inflight_budget_mb=1024,
-                 input_dir=str(corpus), output_dir=str(out_dir), work_dir=str(work_dir))
+                 input_dir=str(ctx["top_dir"]), output_dir=str(out_dir),
+                 work_dir=str(work_dir))
     presence = ctx["presence"]
     jobs = {
-        "word_count": ({"app": "word_count", "input_dir": str(corpus), "reduce_n": 8},
-                       lambda files: {"output_lines": check_zipf_outputs(files, truth)}),
-        "inverted_index": ({"app": "inverted_index", "input_dir": str(ctx["ii_dir"]),
+        "word_count": ({"app": "word_count", "input_dir": str(ctx["top_dir"]), "reduce_n": 8},
+                       lambda files: {"output_lines": check_zipf_outputs(
+                           files, ctx["counts01"])}),
+        "inverted_index": ({"app": "inverted_index", "input_dir": str(ctx["top_dir"]),
                             "reduce_n": 8},
-                           lambda files: ii_check(presence)(
+                           lambda files: ii_check(presence[:, :2])(
                                types.SimpleNamespace(output_files=files))),
-        "grep": ({"app": "grep", "input_dir": str(ctx["left_dir"]), "reduce_n": 8,
+        "grep": ({"app": "grep", "input_dir": str(ctx["top_dir"]), "reduce_n": 8,
                   "app_args": {"query": list(GREP_QUERY)}},
-                 lambda files: grep_check(presence[:, :4], GREP_RANKS, GREP_ABSENT)(
+                 lambda files: grep_check(presence[:, :2], GREP_RANKS, GREP_ABSENT)(
                      types.SimpleNamespace(output_files=files))),
     }
     svc = JobService(cfg)
@@ -1771,21 +2040,27 @@ def main() -> int:
                              manifest_path=str(work / "main-manifest.json"))
         phase_step("step", corpus / "part-0.txt", main_run)
         prof_run = phase_prof(work, corpus, truth, main_run)
-        evict = drive_job("evict", work, zipf_check(truth), corpus=corpus,
+        drive_job("host", work, zipf_check(truth), corpus=corpus, map_engine="host")
+        app_runs, ctx = phase_apps(work)
+        # The eviction cells run on documents 0-1 of zipf-ii-256M (64 MiB,
+        # 0.86 M distinct words against a 2^18 state) to leave the script
+        # room for the mesh phases.
+        evict = drive_job("evict", work, zipf_check(ctx["counts01"]), corpus=ctx["top_dir"],
                           merge_capacity=1 << 18)
         check(evict["spilled_keys"] > 0, "evict: no keys were evicted")
-        drive_job("host", work, zipf_check(truth), corpus=corpus, map_engine="host")
-        host_evict = drive_job("host-evict", work, zipf_check(truth), corpus=corpus,
-                               map_engine="host", merge_capacity=1 << 18,
-                               dispatch_coalesce=False, dispatch_async=False)
+        host_evict = drive_job("host-evict", work, zipf_check(ctx["counts01"]),
+                               corpus=ctx["top_dir"], map_engine="host",
+                               merge_capacity=1 << 18, dispatch_coalesce=False,
+                               dispatch_async=False)
         check(host_evict["spilled_keys"] > 0, "host-evict: no keys were evicted")
-        app_runs, ctx = phase_apps(work)
         prof_host_run = phase_prof_host(work, ctx["top_dir"], ctx["counts01"])
         phase_prof_cli(work, phase_calibrate(work))
         spill_runs = phase_spill(work, corpus, truth, ctx)
-        cluster_run = phase_cluster(work, corpus, truth)
+        mesh_runs = phase_mesh(work, corpus, truth, ctx)
+        ckpt_run = phase_mesh_ckpt(work, ctx["top_dir"], ctx["counts01"])
+        cluster_run = phase_cluster(work, ctx["top_dir"], ctx["counts01"])
         phase_cluster_kill(work, ctx["top_dir"], ctx["counts01"])
-        service_run = phase_service(work, corpus, truth, ctx)
+        service_run = phase_service(work, ctx)
         phase_fleet_cli(work)
         phase_cli(work, text, blobs)
         drain_run = phase_service_drain(work, text, blobs)
@@ -1798,8 +2073,8 @@ def main() -> int:
         row["launches"] = main_run["launches"][row["name"]]
     check(main_run["launches"]["tokenize_hash"] > 0,
           "the main path never launched tokenize_hash")
-    runs = [main_run, prof_run, evict, *app_runs, prof_host_run, *spill_runs]
-    for run in app_runs + [prof_host_run] + spill_runs:
+    runs = [main_run, prof_run, evict, *app_runs, prof_host_run, *spill_runs, *mesh_runs]
+    for run in app_runs + [prof_host_run] + spill_runs + mesh_runs:
         check((run["launches"]["tokenize_hash"] > 0) == (run["map_engine"] == "device"),
               f"{run['phase']}: tokenize_hash launches {run['launches']}")
     runs += [cluster_run, service_run]
@@ -1807,6 +2082,10 @@ def main() -> int:
         run["phase"]: run["launches"]["tokenize_hash"] for run in runs
         if run["map_engine"] == "device"}, "chunks": {
         run["phase"]: run["chunks"] for run in runs if run["map_engine"] == "device"},
+        "mesh_rounds": {run["phase"]: run["mesh_rounds"] for run in mesh_runs},
+        "mesh-ckpt": {"tokenize_hash": ckpt_run["launches"]["tokenize_hash"],
+                      "rounds": ckpt_run["resumed_rounds"],
+                      "counted_in": "the resumed process's manifest"},
         "service-drain": {"tokenize_hash": drain_run["launches"]["tokenize_hash"],
                           "chunks": 2 * drain_run["chunks_per_job"],
                           "counted_in": "the workers' manifests"}})

@@ -12,6 +12,7 @@ the reference's flags for the fields this package implements:
          [--sync-dispatch] [--no-dispatch-coalesce] [--dispatch-fill F]]
         [--accum-budget-mb MB] [--dict-budget-words N] [--sync-spill]
         [--profile [--profile-hz HZ]] [--profile-dir DIR] [--lineage]
+        [--mesh D [--sharded | --checkpoint-every N] [--resume]]
     python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
     python -m mapreduce_rust_tpu_torch coordinator --worker-n N [--port P]
         [--speculate [--speculate-after-frac F]] [--metrics-port P] ...
@@ -156,6 +157,10 @@ _SUBCOMMAND_FIELDS = {
     "profile_hz": ("profile_hz", False),
     "profile_dir": ("profile_dir", False),
     "lineage": ("lineage", False),
+    "mesh_shape": ("mesh", False),
+    "sharded_stream": ("sharded", False),
+    "checkpoint_every_groups": ("checkpoint_every", False),
+    "resume": ("resume", False),
 }
 
 
@@ -734,6 +739,21 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("run", help="single-process end-to-end job (CUDA path)")
     _add_common(p)
+    p.add_argument("--mesh", type=int, default=None, metavar="D",
+                   help="shards of the 1-D mesh (shard i on cuda:(i %% the "
+                   "card count); D > 1 runs the mesh driver, which tokenizes "
+                   "on the device whatever --map-engine says)")
+    p.add_argument("--sharded", action="store_true", dest="sharded",
+                   help="with --mesh: sequence-parallel ingestion — the byte "
+                   "stream is cut at arbitrary offsets across the shards and "
+                   "a halo exchange reconstructs straddling tokens")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   dest="checkpoint_every", metavar="N",
+                   help="with --mesh: write an atomic data-plane checkpoint "
+                   "every N groups (work dir driver.ckpt.*)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the work dir's driver checkpoint when "
+                   "it matches this job's fingerprint")
     p.add_argument("--merge-capacity", type=int, default=Config.merge_capacity,
                    dest="merge_capacity", metavar="N",
                    help="distinct records the device state holds before it "

@@ -62,9 +62,8 @@ class App:
 
     @property
     def device_select_k(self) -> "int | None":
-        """Non-None: a mesh driver may finish the job from per-device top-k
-        candidates (the reference's parallel/topk.py). Nothing in this
-        package reads it yet; it is kept so the apps copy unchanged."""
+        """Non-None: the mesh driver may finish the job from per-shard top-k
+        candidates (parallel/topk.py)."""
         return None
 
     def host_mask(self, keys) -> "object | None":

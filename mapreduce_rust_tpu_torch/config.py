@@ -2,16 +2,17 @@
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
 single-device engines (device engine and host-map engine, every app), the
-coordinator/worker task path, the multi-tenant job service, tracing, the
-run manifest, the live metrics, the sampling profiler, the device trace
-and the provenance ledger read, with the reference's names, defaults and validation — except ``device``, which
-defaults to ``"cuda"``: the port's entry points run on the card and raise
-without one, unless the caller asks for the CPU with ``device="cpu"``.
+single-process mesh (chunked and sequence-parallel, with its checkpoint),
+the coordinator/worker task path, the multi-tenant job service, tracing,
+the run manifest, the live metrics, the sampling profiler, the device
+trace and the provenance ledger read, with the reference's names, defaults
+and validation — except ``device``, which defaults to ``"cuda"``: the
+port's entry points run on the card and raise without one, unless the
+caller asks for the CPU with ``device="cpu"``.
 
-Fields of engines this package does not have yet keep their reference
-names and defaults so that a reference Config's settings read the same
-here; setting one to anything else raises ``NotImplementedError`` instead
-of being ignored.
+Two reference fields have no counterpart: ``compilation_cache_dir`` (XLA's
+persistent compile cache; nothing here compiles through XLA) and
+``multihost_barrier_timeout_s`` (the multi-process mesh is not ported).
 """
 
 from __future__ import annotations
@@ -46,14 +47,6 @@ def _usable_cores() -> int:
     except (AttributeError, OSError):  # non-Linux
         return os.cpu_count() or 1
 
-#: Reference fields whose engines are not ported: field → the only value
-#: accepted (the reference default, which leaves the engine off).
-NOT_PORTED = {
-    "mesh_shape": None,                # multi-device mesh
-    "sharded_stream": False,           # halo-exchange ingestion
-    "checkpoint_every_groups": 0,      # mesh checkpoint
-    "resume": False,
-}
 
 DEVICES = ("auto", "cuda", "cpu")
 
@@ -66,11 +59,27 @@ class Config:
 
     # ---- Data plane ----
     chunk_bytes: int = 1 << 22      # bytes per map chunk fed to the device
+    max_word_len: int = 64          # halo of the sequence-parallel mesh
+                                    # tokenizer: a longer token that straddles
+                                    # a shard edge is counted in
+                                    # halo_truncations
     merge_capacity: int = 1 << 21   # running distinct-key capacity on device
     partial_capacity: Optional[int] = None  # per-chunk distinct-key cap
                                     # (None → max(chunk_bytes // 8, 1024);
                                     # overflow replays the chunk full-width)
+    bucket_capacity_factor: float = 2.0  # mesh all_to_all per-bucket
+                                    # slack over an even split; a bucket that
+                                    # overflows replays its group (exact)
     device: str = "cuda"            # "cuda" | "auto" (= "cuda") | "cpu"
+    mesh_shape: Optional[int] = None  # shards of the 1-D mesh; > 1 runs the
+                                    # mesh driver, shard i on cuda:(i % the
+                                    # card count), or all on the CPU with
+                                    # device="cpu"
+    sharded_stream: bool = False    # mesh only: each window rides the mesh
+                                    # as ONE byte stream cut at arbitrary
+                                    # offsets; a halo exchange
+                                    # (parallel/halo.py) counts straddling
+                                    # tokens exactly once
     ingest_threads: int = 4         # host threads for dictionary scans
     prefetch_chunks: int = 8        # chunker read-ahead depth (host queue)
     pipeline_depth: int = 64        # in-flight device steps before the host
@@ -212,11 +221,14 @@ class Config:
                                     # repeated submission is served from it
                                     # with zero new task grants; 0 = off
 
-    # ---- Not ported (see NOT_PORTED) ----
-    mesh_shape: Optional[int] = None
-    sharded_stream: bool = False
-    checkpoint_every_groups: int = 0
-    resume: bool = False
+    # ---- Data-plane checkpoint (the chunked mesh driver) ----
+    checkpoint_every_groups: int = 0  # > 0: after every N mesh groups,
+                                    # drain the pipeline and write an atomic
+                                    # work_dir/driver.ckpt.npz (per-shard
+                                    # state, host accumulator, progress) with
+                                    # the dictionary beside it
+    resume: bool = False            # start from work_dir/driver.ckpt.* when
+                                    # it matches this job's fingerprint
 
     # ---- Paths ----
     input_dir: str = "data"
@@ -227,20 +239,16 @@ class Config:
                                     # When set it supersedes input_dir and
                                     # doc ids run over the concatenated
                                     # listings (chunker.resolve_corpora)
-    work_dir: str = "mr-work"        # intermediates
+    work_dir: str = "mr-work"        # intermediates / checkpoints
     output_dir: str = "mr-out"       # final per-partition outputs
 
     def __post_init__(self) -> None:
-        for name, accepted in NOT_PORTED.items():
-            if getattr(self, name) != accepted:
-                raise NotImplementedError(
-                    f"Config.{name}={getattr(self, name)!r}: not ported to the "
-                    f"PyTorch/CUDA package yet (only {accepted!r})"
-                )
         if self.map_n <= 0 or self.reduce_n <= 0 or self.worker_n <= 0:
             raise ValueError("map_n, reduce_n, worker_n must be positive")
         if self.chunk_bytes <= 0:
             raise ValueError("chunk_bytes must be positive")
+        if self.chunk_bytes <= 2 * self.max_word_len:
+            raise ValueError("chunk_bytes too small for max_word_len halo")
         if self.device not in DEVICES:
             raise ValueError(f"unknown device {self.device!r}; have {DEVICES}")
         if self.merge_capacity < 1:

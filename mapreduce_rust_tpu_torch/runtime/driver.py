@@ -1,7 +1,8 @@
-"""Chunked streaming driver — the end-to-end engines on one device.
+"""Chunked streaming driver — the end-to-end engines of one process.
 
-The port of ``mapreduce_rust_tpu/runtime/driver.py``'s single-device
-engines. ``run_job`` picks one by ``Config.map_engine``.
+The port of ``mapreduce_rust_tpu/runtime/driver.py``'s single-process
+engines. ``run_job`` picks one: the mesh when ``Config.mesh_shape`` > 1,
+else the engine ``Config.map_engine`` names.
 
 **Device engine** (``"device"``, the default: ``_stream_single``). A host
 loop streams whitespace-aligned chunks (runtime/chunker.py) through a
@@ -35,6 +36,17 @@ window's (key, count) update to the dispatch plane, which coalesces
 updates across windows and merges them into the same device state with
 ``merge_batches``. No scan kernel runs on the card in this engine.
 
+**Mesh engines** (``mesh_shape`` = D > 1; parallel/shuffle.py). D chunks
+make a group, one per shard; each group is one round of per-shard scan
+kernel launches, the combine, a bucket scatter by the unsigned ``k1 % D``,
+the all_to_all and per-shard merges (``_stream_mesh``, with its
+checkpoint and resume). ``sharded_stream`` lays each host window across
+the shards as one byte stream cut anywhere and repairs the seams with a
+halo exchange (``_stream_sharded``, parallel/halo.py). Overflowing groups
+replay through wider tiers; the state is sharded by hash class, so its
+shards fold into the host accumulator independently (top_k fetches only
+per-shard candidates when that is exact, parallel/topk.py).
+
 At egress the final table joins the hash→word dictionary and the app
 formats its partitions, written as ``mr-{r}.txt``.
 
@@ -55,6 +67,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
+from zipfile import BadZipFile
 
 import numpy as np
 import torch
@@ -68,7 +81,7 @@ from mapreduce_rust_tpu_torch.config import (
 )
 from mapreduce_rust_tpu_torch.core.hashing import hash_words
 from mapreduce_rust_tpu_torch.core.kv import SENTINEL_I32, KVBatch
-from mapreduce_rust_tpu_torch.core.normalize import normalize_python
+from mapreduce_rust_tpu_torch.core.normalize import normalize_python, normalize_unicode
 from mapreduce_rust_tpu_torch.native.host import (
     arena_bytes,
     coalesce_updates_into,
@@ -403,6 +416,15 @@ class HostAccumulator:
             rows = self._combine_sorted(rows, r)
         return rows
 
+    def snapshot(self) -> tuple[np.ndarray, np.ndarray]:
+        """(keys [n, 2], vals [n]) of everything accumulated so far, folded —
+        the mesh checkpoint's accumulator. Every op is associative, so
+        adding them back resumes exactly."""
+        if not self._keys and not self._runs:
+            return np.empty((0, 2), np.int64), np.empty(0, np.int64)
+        rows = self.fold_arrays()
+        return rows[:, :2], rows[:, 2]
+
     @property
     def table(self) -> dict:
         if self._table is None:
@@ -511,7 +533,9 @@ class _IngestStream:
     the consumer (bounded queue), and a thread pool runs the dictionary
     scans; scan results fold into the Dictionary only on the consumer
     thread. doc_id = doc_id_offset + position in inputs (the flat listing
-    of every corpus; a worker's map task passes its task id).
+    of every corpus; a worker's map task passes its task id). The first
+    ``skip_chunks`` chunks are read and dropped unscanned: a resumed mesh
+    job's checkpoint already holds them.
 
     With a provenance ledger active, each chunk's content digest is taken
     on the pool thread that scans it (the payload is hot there) and
@@ -520,8 +544,9 @@ class _IngestStream:
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
                  dictionary: Dictionary, host_mask, doc_id_offset: int = 0,
-                 lineage_range: bool = False) -> None:
+                 lineage_range: bool = False, skip_chunks: int = 0) -> None:
         self.cfg = cfg
+        self.skip_chunks = skip_chunks
         self.stats = stats
         self._ledger = active_ledger()  # None when the ledger is off
         self._lineage_range = lineage_range
@@ -612,6 +637,9 @@ class _IngestStream:
                 if self.err is not None:
                     raise self.err
                 return
+            if self.skip_chunks > 0:
+                self.skip_chunks -= 1
+                continue
             self.scans.append(
                 (self.pool.submit(scan, bytes(chunk.data[: chunk.nbytes])),
                  chunk.doc_id)
@@ -1639,6 +1667,444 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
     acc.add_batch(dispatch.state)
 
 
+# ---------------------------------------------------------------------------
+# The mesh engines (mesh_shape > 1)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _a2a_span(stats: JobStats, **span_args):
+    """One mesh.all_to_all block: the trace span plus a wall-clock
+    accumulation into stats.all_to_all_s and its per-round histograms, so
+    the manifest's interconnect split exists in untraced runs too. It
+    covers tokenize, bucket scatter, the all_to_all and the merge dispatch
+    of the round: host-side time on an asynchronous device, whose waiting
+    lands in device_wait_s."""
+    t0 = time.perf_counter()
+    try:
+        with trace_span("mesh.all_to_all", **span_args):
+            yield
+    finally:
+        dt = time.perf_counter() - t0
+        stats.all_to_all_s += dt
+        stats.record_hist("a2a.round_s", dt)
+        wb = span_args.get("wire_bytes")
+        if wb:
+            stats.record_hist("a2a.wire_bytes", wb)
+
+
+def _ship(host: torch.Tensor, mesh) -> list:
+    """Row i of a ``[D, N]`` host tensor onto shard i's device, as an
+    asynchronous copy; the caller keeps ``host`` alive until the copy is
+    known to be done (a drain)."""
+    return [host[i].to(dev, non_blocking=True) for i, dev in enumerate(mesh.devices)]
+
+
+def _pinned(arr: np.ndarray, mesh) -> torch.Tensor:
+    """The host tensor of a ``[D, N]`` group, pinned when the mesh is on
+    cards so that its copies run asynchronously."""
+    host = torch.from_numpy(arr)
+    return host.pin_memory() if mesh.devices[0].type == "cuda" else host
+
+
+def _spill_shards(stats: JobStats, acc: HostAccumulator, evicted, ev_n: int) -> None:
+    stats.spill_events += 1
+    stats.spilled_keys += ev_n
+    for ev in evicted:
+        acc.add_batch(ev)
+
+
+def _replay_readback(stats: JobStats, acc: HostAccumulator, evicted, ev_counts) -> None:
+    """A replay round's blocking eviction readback and spill, outside its
+    a2a block: they are device wait and host work, and inside it they
+    would count as interconnect time."""
+    t0 = time.perf_counter()
+    with trace_span("device.drain", steps=1):
+        ev_n = int(ev_counts.sum())
+    stats.device_wait_s += time.perf_counter() - t0
+    if ev_n > 0:
+        _spill_shards(stats, acc, evicted, ev_n)
+
+
+def _ckpt_paths(cfg: Config) -> tuple[str, str]:
+    return (
+        os.path.join(cfg.work_dir, "driver.ckpt.npz"),
+        os.path.join(cfg.work_dir, "driver.ckpt.dict"),
+    )
+
+
+def _job_fingerprint(cfg: Config, app: App, inputs, d: int) -> str:
+    """Ties a checkpoint to (inputs, app, every shape-determining knob): a
+    mismatch on resume is ignored, never trusted. The string is the
+    reference's, so either package resumes the other's checkpoint."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in inputs:
+        st = os.stat(p)
+        h.update(f"{p}:{st.st_size}:{st.st_mtime_ns};".encode())
+    # state-v2: the rank merge needs a sorted state; a checkpoint of the
+    # reference's validity-only-clamp era may hold SENTINEL holes.
+    h.update(
+        f"state-v2:{app.name}:{app.combine_op}:{cfg.chunk_bytes}:{d}:"
+        f"{cfg.effective_partial_capacity()}:{cfg.merge_capacity}".encode()
+    )
+    return h.hexdigest()
+
+
+def _write_ckpt(cfg: Config, fingerprint: str, state, groups_done: int,
+                acc: HostAccumulator, dictionary, stats: JobStats) -> None:
+    """Atomic driver checkpoint: per-shard state (uint32 ``[D, cap]`` keys,
+    the reference's layout), host accumulator and progress in one npz (the
+    commit point), the dictionary beside it. The dictionary renames
+    FIRST: it only grows, so a dictionary newer than the npz is a superset,
+    and the npz's commit guarantees a complete one exists."""
+    from mapreduce_rust_tpu_torch.parallel.shuffle import local_batch
+
+    npz_path, dict_path = _ckpt_paths(cfg)
+    os.makedirs(cfg.work_dir, exist_ok=True)
+    tmp_d = dict_path + f".{os.getpid()}.tmp"
+    dictionary.save(tmp_d)
+    os.replace(tmp_d, dict_path)
+    k1, k2, value, valid = local_batch(state)
+    acc_keys, acc_vals = acc.snapshot()
+    tmp_n = npz_path + f".{os.getpid()}.tmp"
+    with open(tmp_n, "wb") as f:
+        np.savez(
+            f,
+            fingerprint=np.frombuffer(fingerprint.encode(), dtype=np.uint8),
+            k1=k1, k2=k2, value=value, valid=valid,
+            groups_done=np.int64(groups_done),
+            acc_keys=acc_keys, acc_vals=acc_vals,
+            spill_events=np.int64(stats.spill_events),
+            spilled_keys=np.int64(stats.spilled_keys),
+        )
+    os.replace(tmp_n, npz_path)
+    log.info("checkpoint: %d groups done", groups_done)
+
+
+def _load_ckpt(cfg: Config, fingerprint: str):
+    """(state arrays as a host KVBatch of ``[D, cap]``, groups_done,
+    acc_keys, acc_vals, spill_events, spilled_keys, dict_path), or None
+    when the checkpoint is absent, torn or another job's."""
+    npz_path, dict_path = _ckpt_paths(cfg)
+    if not (os.path.exists(npz_path) and os.path.exists(dict_path)):
+        return None
+    try:
+        with np.load(npz_path) as z:
+            if bytes(z["fingerprint"]).decode() != fingerprint:
+                log.warning("checkpoint fingerprint mismatch — starting fresh")
+                return None
+            return (
+                KVBatch(z["k1"], z["k2"], z["value"], z["valid"]),
+                int(z["groups_done"]),
+                z["acc_keys"], z["acc_vals"],
+                int(z["spill_events"]), int(z["spilled_keys"]),
+                dict_path,
+            )
+    except (OSError, ValueError, KeyError, BadZipFile) as e:
+        log.warning("unreadable checkpoint (%s) — starting fresh", e)
+        return None
+
+
+def _finish_mesh_state(app: App, state, stats: JobStats, acc: HostAccumulator) -> None:
+    """Fold the final per-shard state into the host accumulator. A top-k
+    app fetches only per-shard candidates (parallel/topk.py) when that is
+    provably exact: no spill (a spilled key's device value is partial) and
+    no value tie at any shard's k boundary (the word tie-break needs the
+    bytes, which the device does not have)."""
+    from mapreduce_rust_tpu_torch.parallel.shuffle import shard_fill_counts
+    from mapreduce_rust_tpu_torch.parallel.topk import topk_candidates
+
+    # Per-shard distinct keys: the hash-class skew signal, read once here.
+    stats.mesh_shard_rows = shard_fill_counts(state)
+    k = app.device_select_k
+    if k and stats.spill_events == 0:
+        res = topk_candidates(state, k)
+        if res is not None:
+            keys, vals = res
+            acc.add(keys, vals)
+            log.info("device top-%d selection: %d candidates fetched", k, len(vals))
+            return
+        log.info("device top-%d selection ambiguous (value tie at boundary) "
+                 "— falling back to full state fetch", k)
+    for st in state:
+        acc.add_batch(st)
+
+
+def _stream_sharded(cfg: Config, app: App, inputs, stats: JobStats,
+                    acc: HostAccumulator, dictionary) -> None:
+    """Sequence-parallel mesh ingestion: each normalized window rides the
+    mesh as ONE contiguous byte stream cut at arbitrary equal offsets (mid
+    word, even mid UTF-8 sequence), one shard each. The halo exchange
+    (parallel/halo.py) hashes every straddling token exactly once, owned by
+    the shard where it ends; the records then take the combine → bucket
+    scatter → all_to_all → merge pipeline.
+
+    Tokens longer than the halo (cfg.max_word_len) may hash truncated; they
+    are detected on the device and counted in stats.halo_truncations."""
+    from mapreduce_rust_tpu_torch.parallel.halo import make_sharded_tokenizer, shard_stream
+    from mapreduce_rust_tpu_torch.parallel.shuffle import (
+        default_bucket_cap,
+        make_kv_shuffle_step_fns,
+        make_mesh,
+        make_shuffle_step_fns,
+        sharded_empty_state,
+        wire_bytes_per_round,
+    )
+
+    if cfg.checkpoint_every_groups or cfg.resume:
+        raise ValueError(
+            "checkpoint/resume is not supported in sharded-stream mode "
+            "(use the chunked mesh path, or run without sharded_stream)"
+        )
+    mesh = make_mesh(cfg.mesh_shape, cfg.device)
+    d = mesh.size
+    u_cap = cfg.effective_partial_capacity()
+    bucket_cap = default_bucket_cap(u_cap, d, cfg.bucket_capacity_factor)
+    tokenize = make_sharded_tokenizer(mesh, halo=cfg.max_word_len)
+    kv_shuffle = make_kv_shuffle_step_fns(app, u_cap, bucket_cap, mesh)
+    merge = make_shuffle_step_fns(app, u_cap, bucket_cap, mesh)[1]
+    state = sharded_empty_state(mesh, max(cfg.merge_capacity // d, 16))
+    depth = max(max(cfg.pipeline_depth, 1) // d, 4)
+    pending: collections.deque = collections.deque()
+    shard_bytes = max(cfg.chunk_bytes, 2 * cfg.max_word_len + 8)
+    # The full-width replay tier: u_cap = bucket_cap = the whole window, so
+    # neither overflow can recur.
+    w_cap = cfg.max_word_len + shard_bytes + 1
+
+    def replay_group(group: bytes, doc_id: int, p_n: int) -> None:
+        # The fast round clamped the whole group to empty on the device, so
+        # re-run it through the full-width tier and merge that. Exact.
+        nonlocal state
+        stats.partial_overflow_replays += int(p_n > 0)
+        stats.bucket_skew_replays += int(p_n == 0)
+        wide = make_kv_shuffle_step_fns(app, w_cap, w_cap, mesh)
+        wide_merge = make_shuffle_step_fns(app, w_cap, w_cap, mesh)[1]
+        host = _pinned(shard_stream(group, mesh, pad=shard_bytes), mesh)
+        stats.mesh_rounds += 1
+        wb = wire_bytes_per_round(d, w_cap)
+        stats.shuffle_wire_bytes += wb
+        with _a2a_span(stats, round=stats.mesh_rounds, tier="replay", wire_bytes=wb):
+            kvs, _trunc = tokenize(_ship(host, mesh))
+            local, _p, _b = wide(kvs, [doc_id] * d)
+            state, evicted, ev_counts = wide_merge(state, local)
+        _replay_readback(stats, acc, evicted, ev_counts)
+
+    def drain(n: int) -> None:
+        # One batched readback of every counter of the window's rounds.
+        if n <= 0:
+            return
+        batch = [pending.popleft() for _ in range(n)]
+        t0 = time.perf_counter()
+        with trace_span("device.drain", steps=n):
+            counts = torch.stack([x for row in batch for x in row[:4]]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        stats.device_wait_s += dt
+        stats.record_hist("device.drain_s", dt)
+        _sample_device_memory(stats)
+        for row, trunc, p_ovf, b_ovf, ev in zip(
+            batch, counts[0::4], counts[1::4], counts[2::4], counts[3::4]
+        ):
+            stats.halo_truncations += int(trunc.sum())
+            ev_n = int(ev.sum())
+            if ev_n > 0:
+                with trace_span("spill", keys=ev_n):
+                    _spill_shards(stats, acc, row[4], ev_n)
+            p_n, b_n = int(p_ovf.sum()), int(b_ovf.sum())
+            if p_n or b_n:
+                replay_group(row[5], row[6], p_n)
+
+    ledger = active_ledger()
+    lineage_range = app.partition_mode == "range"
+    for doc_id, window in _iter_windows(cfg, inputs, stats):
+        stats.chunks += 1
+        raw = bytes(window)
+        norm = normalize_unicode(raw)
+        kind, *scan = _scan_payload(norm)
+        keys = scan_keys(kind, scan)
+        mask = app.host_mask(keys)
+        fold_scan_into_dictionary(dictionary, mask, kind, scan)
+        if ledger is not None:
+            # The RAW window's digest: the bytes every other engine hashes.
+            ledger.record_chunk(
+                doc_id, len(raw), chunk_digest(raw),
+                parts=_routed_parts(keys, mask, cfg.reduce_n, lineage_range),
+            )
+        # Group seams are host-side cuts like window seams, so they align to
+        # whitespace: a token split there would fragment into keys no
+        # dictionary entry matches. The arbitrary (mid-word) cuts are the
+        # D-1 shard seams inside each group, which the halo repairs.
+        off = 0
+        while off < len(norm):
+            end = min(off + d * shard_bytes, len(norm))
+            if end < len(norm):
+                probe = norm[max(off, end - cfg.max_word_len - 1): end]
+                o, forced = _ws_cut(probe, 0, len(probe))
+                if forced:
+                    stats.forced_cuts += 1
+                else:
+                    end -= len(probe) - o
+            group = norm[off:end]
+            off = end
+            stats.mesh_rounds += 1
+            wb = wire_bytes_per_round(d, bucket_cap)
+            stats.shuffle_wire_bytes += wb
+            with _a2a_span(stats, round=stats.mesh_rounds, tier="fast", wire_bytes=wb):
+                host = _pinned(shard_stream(group, mesh, pad=shard_bytes), mesh)
+                kvs, trunc = tokenize(_ship(host, mesh))
+                local, p_ovf, b_ovf = kv_shuffle(kvs, [doc_id] * d)
+                state, evicted, ev_counts = merge(state, local)
+                pending.append((trunc, p_ovf, b_ovf, ev_counts, evicted, group,
+                                doc_id, host))
+            if len(pending) >= 2 * depth:
+                drain(depth)
+        maybe_snapshot()
+        metrics_tick()
+    drain(len(pending))
+    _finish_mesh_state(app, state, stats, acc)
+
+
+def _stream_mesh(cfg: Config, app: App, inputs, stats: JobStats,
+                 acc: HostAccumulator, dictionary) -> None:
+    """The group-of-D-chunks pipeline over the 1-D mesh
+    (parallel/shuffle.py): D consecutive chunks make a group, one per
+    shard, and each group is one map → all_to_all → merge round. With
+    ``checkpoint_every_groups`` the pipeline drains and writes an atomic
+    checkpoint every N groups; with ``resume`` a matching checkpoint's
+    state, accumulator and dictionary are loaded and its groups' chunks
+    skipped."""
+    from mapreduce_rust_tpu_torch.parallel.shuffle import (
+        default_bucket_cap,
+        make_mesh,
+        make_shuffle_step_fns,
+        sharded_empty_state,
+        wire_bytes_per_round,
+    )
+
+    mesh = make_mesh(cfg.mesh_shape, cfg.device)
+    d = mesh.size
+    u_cap = cfg.effective_partial_capacity()
+    bucket_cap = default_bucket_cap(u_cap, d, cfg.bucket_capacity_factor)
+    fast = make_shuffle_step_fns(app, u_cap, bucket_cap, mesh)
+    state = sharded_empty_state(mesh, max(cfg.merge_capacity // d, 16))
+    # Each in-flight group pins D chunks for the rare replay, so the window
+    # shrinks by D to keep pending memory at the single-device engine's.
+    depth = max(max(cfg.pipeline_depth, 1) // d, 4)
+    pending: collections.deque = collections.deque()
+
+    fingerprint = _job_fingerprint(cfg, app, inputs, d)
+    groups_done = 0
+    skip_chunks = 0
+    if cfg.resume:
+        ck = _load_ckpt(cfg, fingerprint)
+        if ck is not None:
+            st_host, groups_done, ak, av, sev, skk, dict_path = ck
+            state = [KVBatch.from_numpy(*(lane[i] for lane in st_host), device=dev)
+                     for i, dev in enumerate(mesh.devices)]
+            skip_chunks = groups_done * d
+            acc.add(ak, av)
+            dictionary.merge(Dictionary.load(dict_path))
+            stats.spill_events, stats.spilled_keys = sev, skk
+            log.info("resumed from checkpoint: %d groups already merged", groups_done)
+
+    def replay_group(host: torch.Tensor, docs: list, p_n: int) -> None:
+        # The fast round clamped this whole group to empty on the device,
+        # so re-run it through a tier wide enough that the overflow cannot
+        # recur, and merge that.
+        nonlocal state
+        if p_n > 0:
+            # A chunk had more distinct keys than u_cap: the widest tier.
+            stats.partial_overflow_replays += 1
+            tier_cap = cfg.chunk_bytes
+            fns = make_shuffle_step_fns(app, tier_cap, tier_cap, mesh)
+        else:
+            # Bucket skew: bucket_cap = u_cap makes overflow impossible.
+            stats.bucket_skew_replays += 1
+            tier_cap = u_cap
+            fns = make_shuffle_step_fns(app, u_cap, u_cap, mesh)
+        stats.mesh_rounds += 1
+        wb = wire_bytes_per_round(d, tier_cap)
+        stats.shuffle_wire_bytes += wb
+        with _a2a_span(stats, round=stats.mesh_rounds, tier="replay", wire_bytes=wb):
+            local, _p, _b = fns[0](_ship(host, mesh), docs)
+            state, evicted, ev_counts = fns[1](state, local)
+        _replay_readback(stats, acc, evicted, ev_counts)
+
+    def drain(n: int) -> None:
+        # One batched readback per window, as _stream_single's drain.
+        if n <= 0:
+            return
+        batch = [pending.popleft() for _ in range(n)]
+        t0 = time.perf_counter()
+        with trace_span("device.drain", steps=n):
+            counts = torch.stack([x for row in batch for x in row[:3]]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        stats.device_wait_s += dt
+        stats.record_hist("device.drain_s", dt)
+        _sample_device_memory(stats)
+        for row, p_ovf, b_ovf, ev in zip(batch, counts[0::3], counts[1::3], counts[2::3]):
+            ev_n = int(ev.sum())
+            if ev_n > 0:
+                with trace_span("spill", keys=ev_n):
+                    _spill_shards(stats, acc, row[3], ev_n)
+            p_n = int(p_ovf.sum())
+            if p_n > 0 or int(b_ovf.sum()) > 0:
+                replay_group(row[4], row[5], p_n)
+
+    group_chunks: list[np.ndarray] = []
+    group_docs: list[int] = []
+
+    def submit_group() -> None:
+        nonlocal state, groups_done
+        while len(group_chunks) < d:  # pad the tail group with space chunks
+            group_chunks.append(np.full(cfg.chunk_bytes, 0x20, dtype=np.uint8))
+            group_docs.append(0)
+        host = _pinned(np.stack(group_chunks), mesh)
+        docs = list(group_docs)
+        group_chunks.clear()
+        group_docs.clear()
+        stats.mesh_rounds += 1
+        wb = wire_bytes_per_round(d, bucket_cap)
+        stats.shuffle_wire_bytes += wb
+        with _a2a_span(stats, round=stats.mesh_rounds, tier="fast", wire_bytes=wb):
+            local, p_ovf, b_ovf = fast[0](_ship(host, mesh), docs)
+            # Merge dispatches at once: an overflowed group is empty on the
+            # device, so merging before the counters reach the host is safe.
+            # The host tensor stays pending for the rare replay.
+            state, evicted, ev_counts = fast[1](state, local)
+            pending.append((p_ovf, b_ovf, ev_counts, evicted, host, docs))
+        groups_done += 1
+        if (cfg.checkpoint_every_groups > 0
+                and groups_done % cfg.checkpoint_every_groups == 0):
+            drain(len(pending))  # the state must hold every submitted group
+            # ...and so must the dictionary: a checkpointed count whose word
+            # never reached the saved dictionary would resume unknown.
+            while ingest.scans:
+                ingest._fold_done(block=True)
+            _write_ckpt(cfg, fingerprint, state, groups_done, acc, dictionary, stats)
+        elif len(pending) >= 2 * depth:
+            drain(depth)
+
+    ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask,
+                           lineage_range=app.partition_mode == "range",
+                           skip_chunks=skip_chunks)
+    try:
+        for chunk in ingest:
+            group_chunks.append(chunk.data)
+            group_docs.append(chunk.doc_id)
+            if len(group_chunks) == d:
+                submit_group()
+        if group_chunks:
+            submit_group()
+        drain(len(pending))
+    except BaseException:
+        ingest.close(abort=True)
+        raise
+    ingest.close()
+    _finish_mesh_state(app, state, stats, acc)
+
+
 #: Chrome-trace categories of device activity in a torch.profiler trace.
 DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1734,6 +2200,9 @@ def run_job(
         raise ValueError("no input files")
     budgeted = (cfg.host_accum_budget_mb is not None
                 or cfg.dictionary_budget_words is not None)
+    if budgeted and (cfg.checkpoint_every_groups or cfg.resume):
+        # A checkpoint snapshots the accumulator and dictionary in RAM.
+        raise ValueError("egress budgets are incompatible with checkpoint/resume")
     if budgeted and not write_outputs:
         # The streaming egress delivers results only through output files:
         # without them a budgeted run would compute everything and return
@@ -1763,10 +2232,13 @@ def run_job(
         spill_dir=cfg.work_dir, async_spill=cfg.spill_async,
     )
     # The host-map engine splits the dictionary into key-hash-disjoint
-    # shards, one per fold thread; the device engine folds on its consumer.
-    # The word budget splits across the shards, so it bounds the job, not
-    # each shard.
-    fold_shards = cfg.effective_fold_shards() if cfg.map_engine == "host" else 1
+    # shards, one per fold thread; the device engine and the mesh (which
+    # tokenizes on the device whatever map_engine says, and checkpoints a
+    # plain Dictionary) fold on their consumer. The word budget splits
+    # across the shards, so it bounds the job, not each shard.
+    mesh = bool(cfg.mesh_shape and cfg.mesh_shape > 1)
+    fold_shards = (cfg.effective_fold_shards()
+                   if cfg.map_engine == "host" and not mesh else 1)
     if fold_shards > 1:
         per_shard = (max(1, cfg.dictionary_budget_words // fold_shards)
                      if cfg.dictionary_budget_words is not None else None)
@@ -1832,7 +2304,16 @@ def run_job(
         # The device trace wraps the stream phase, so its export is not
         # counted in the phase's seconds.
         with _device_trace(cfg.profile_dir, device), stats.phase("stream"):
-            if cfg.map_engine == "host":
+            if mesh and cfg.map_engine == "host":
+                log.warning(
+                    "map_engine='host' applies to the single-device driver only; "
+                    "mesh runs tokenize on the device (the mesh IS the map engine)"
+                )
+            if mesh and cfg.sharded_stream:
+                _stream_sharded(cfg, app, inputs, stats, acc, dictionary)
+            elif mesh:
+                _stream_mesh(cfg, app, inputs, stats, acc, dictionary)
+            elif cfg.map_engine == "host":
                 _stream_host_map(cfg, app, inputs, stats, acc, dictionary, device)
             else:
                 _stream_single(cfg, app, inputs, stats, acc, dictionary,
@@ -1892,10 +2373,17 @@ def run_job(
             )
 
             exc = _sys.exc_info()[1]
+            extra = {"error": repr(exc)} if exc is not None else {}
+            if device.type == "cuda":
+                # The scan kernel's launches in this process: the evidence
+                # that the job's map ran on the card (a worker's manifest
+                # carries the same field).
+                from mapreduce_rust_tpu_torch.ops.tokenize_cuda import tokenize_hash
+
+                extra["kernel_launches"] = {"tokenize_hash": tokenize_hash.launches}
             flush_run_artifacts(
                 cfg, tracer, logger=log, stats=stats, app_name=app.name,
-                inputs=inputs, output_files=output_files,
-                extra={"error": repr(exc)} if exc is not None else None,
+                inputs=inputs, output_files=output_files, extra=extra or None,
             )
         if registry is not None:
             # After the flush (build_manifest read the still-active ring);

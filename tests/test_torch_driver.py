@@ -22,7 +22,7 @@ from mapreduce_rust_tpu.config import Config as JaxConfig
 from mapreduce_rust_tpu.runtime.driver import merge_outputs as jax_merge_outputs
 from mapreduce_rust_tpu.runtime.driver import run_job as jax_run_job
 from mapreduce_rust_tpu_torch.__main__ import main as cli_main
-from mapreduce_rust_tpu_torch.config import NOT_PORTED, Config
+from mapreduce_rust_tpu_torch.config import Config
 from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
 from mapreduce_rust_tpu_torch.runtime import driver
@@ -275,6 +275,14 @@ async def service():
 jid = asyncio.run(service())
 lines = b"".join(open(f"{sys.argv[2]}/so/job-{jid}/mr-{r}.txt", "rb").read() for r in range(2))
 assert sorted(lines.splitlines()) == ["café 1".encode(), b"hello 3", b"world 1"], lines
+# The single-process mesh: chunked with a checkpoint, then sequence-parallel.
+for kw in (dict(checkpoint_every_groups=1), dict(sharded_stream=True)):
+    res = run_job(Config(device="cpu", chunk_bytes=4096, input_dir=sys.argv[1],
+                         output_dir=sys.argv[2] + "/mo", work_dir=sys.argv[2] + "/mw",
+                         mesh_shape=2, **kw))
+    assert res.table == {b"hello": 3, b"world": 1, "café".encode(): 1}, res.table
+    assert res.stats.mesh_rounds > 0
+import mapreduce_rust_tpu_torch.parallel.topk
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
@@ -330,12 +338,24 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     assert '"ok": true' not in r.stdout
 
 
-@pytest.mark.parametrize("field", sorted(NOT_PORTED))
+@pytest.mark.parametrize(
+    "field", ["checkpoint_every_groups", "mesh_shape", "resume", "sharded_stream"])
 def test_config_rejects_unported_fields(field):
-    value = {"mesh_shape": 2}.get(
-        field, 1 if NOT_PORTED[field] in (None, 0, False) else None)
-    with pytest.raises(NotImplementedError, match=field):
-        Config(**{field: value})
+    # The mesh's four fields, once refused, are ported: each is accepted
+    # with the reference's meaning; only the XLA compile cache and the
+    # multi-process barrier have no field. The halo keeps its validation.
+    value = {"mesh_shape": 2, "checkpoint_every_groups": 1}.get(field, True)
+    assert getattr(Config(**{field: value}), field) == \
+        getattr(JaxConfig(**{field: value}), field) == value
+    for missing in ("compilation_cache_dir", "multihost_barrier_timeout_s"):
+        with pytest.raises(TypeError, match=missing):
+            Config(**{missing: None})
+    for chunk_bytes in (128, 96):
+        with pytest.raises(ValueError, match="max_word_len"):
+            Config(chunk_bytes=chunk_bytes)
+        with pytest.raises(ValueError, match="max_word_len"):
+            JaxConfig(chunk_bytes=chunk_bytes)
+    assert Config(chunk_bytes=64, max_word_len=31).max_word_len == 31
 
 
 def test_config_shares_reference_defaults():
