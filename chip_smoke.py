@@ -85,6 +85,10 @@ one JSON line; any failure raises and ends the run:
               in the ledger) and trace merge, each in a subprocess with its
               own timeout, exit 0 and output; after the service phase,
               fleet over its service root (every utilization in [0, 1]);
+              after cluster-kill, ``check`` over its artifacts (conformant
+              through a lease expiry and a re-execution) and ``model
+              --focus lease`` at depth 10, each exiting 0 in a process
+              that never loads torch;
 10. sort / sort-host — a seeded 48 MiB Zipf corpus through sort on each
               engine: mr-{r}.txt concatenated in partition order is in
               order and holds exactly the generator's counts; partition
@@ -130,6 +134,21 @@ one JSON line; any failure raises and ends the run:
               ``--resume``: exact, and the resumed process's manifest
               counts 4 launches per round it ran, for the groups after
               the checkpoint;
+   mh         — the multi-process mesh: two processes of ``run
+              --distributed --mesh 4 --dist-backend gloo`` (two shards
+              each, all on the one card, where NCCL cannot put two ranks:
+              gloo carries the collectives of the card's tensors) over
+              documents 0-1 of zipf-ii-256M, one document per rank: every
+              rank's mr-{r}.p{rank}.txt together exact (no word in two
+              ranks' files), equal rounds on both ranks, each rank's
+              manifest counting 2 launches per round (the padding rounds
+              of a rank without data included), no unknown key, no
+              collision, only this job's dictionary shards and markers in
+              the work dir; wall, stream, all_to_all_s (now a collective
+              between processes) and wire bytes per rank;
+   mh-grep    — grep on the same two ranks, its query holding a word only
+              document 0 has and one only document 1 has: the dictionary
+              exchange prints each from whichever rank owns its hash class;
 13. cluster — the coordinator/worker task path on documents 0-1 of
               zipf-ii-256M (64 MiB in 2 files: map_n 2,
               reduce_n 8, default Config): a port
@@ -202,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -1099,18 +1119,49 @@ def phase_calibrate(work: pathlib.Path) -> pathlib.Path:
     return path
 
 
-def _analysis_cli(work: pathlib.Path, name: str, args: list, ok=(0,)) -> str:
+#: Runs the port's CLI on argv, then says on its last line whether torch
+#: was loaded.
+_TORCH_FREE_MAIN = ("import sys; from mapreduce_rust_tpu_torch.__main__ import main; "
+                    "rc = main(sys.argv[1:]); print('torch loaded:', 'torch' in sys.modules); "
+                    "sys.exit(rc)")
+
+
+def _analysis_cli(work: pathlib.Path, name: str, args: list, ok=(0,),
+                  torch_free: bool = False) -> str:
     """One analysis command of the port's CLI in a subprocess with its own
-    timeout; returns its standard output, which must not be empty."""
+    timeout; returns its standard output, which must not be empty. With
+    ``torch_free`` the process must also end without torch loaded."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "mapreduce_rust_tpu_torch", *args],
+    cmd = (["-c", _TORCH_FREE_MAIN] if torch_free else ["-m", "mapreduce_rust_tpu_torch"])
+    r = subprocess.run([sys.executable, *cmd, *args],
                        capture_output=True, text=True, timeout=120, cwd=ROOT)
     check(r.returncode in ok and r.stdout.strip(),
           f"cli {name}: exit {r.returncode}, {len(r.stdout)} bytes of output\n"
           f"{r.stderr[-2000:]}")
+    if torch_free:
+        check(r.stdout.rstrip().endswith("torch loaded: False"),
+              f"cli {name}: torch was loaded: {r.stdout[-300:]}")
     emit({"phase": "analysis-cli", "command": name, "rc": r.returncode,
-          "seconds": time.perf_counter() - t0, "output_lines": len(r.stdout.splitlines())})
+          "seconds": time.perf_counter() - t0, "output_lines": len(r.stdout.splitlines()),
+          **({"torch_loaded": False} if torch_free else {})})
     return r.stdout
+
+
+def phase_control_cli(work: pathlib.Path) -> None:
+    """check over cluster-kill's artifacts (a lease expiry and a
+    re-execution conform to the protocol) and a small-depth model of the
+    lease surface: each exits 0 and never loads torch."""
+    doc = json.loads(_analysis_cli(work, "check", [
+        "check", str(work / "kill-work"), "--format", "json"], torch_free=True)
+        .rsplit("torch loaded:", 1)[0])
+    check(doc["ok"] and doc["checked"]["journal_lines"] > 0,
+          f"check: {doc['violations'][:4]}")
+    out = _analysis_cli(work, "model", ["model", "--focus", "lease", "--budget", "400",
+                                        "--depth", "10"], torch_free=True)
+    check("mrmodel: ok" in out, f"model: {out[-500:]}")
+    emit({"phase": "control-cli", "check_events": doc["checked"]["events"],
+          "check_journal_lines": doc["checked"]["journal_lines"],
+          "model": out.splitlines()[0]})
 
 
 def phase_prof_cli(work: pathlib.Path, machine: pathlib.Path) -> None:
@@ -1535,6 +1586,135 @@ def phase_mesh_ckpt(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
            "device_count": torch.cuda.device_count()}
     emit(out)
     return out
+
+
+#: Ranks of the multi-process mesh phases: each owns MESH_SHARDS // MH_RANKS
+#: shards, all on the one card, so NCCL (one rank per card) cannot carry
+#: their collectives and gloo does.
+MH_RANKS = 2
+
+
+def phase_mh(work: pathlib.Path, name: str, corpus: pathlib.Path, check_outputs,
+             app_args: tuple = ()) -> dict:
+    """The multi-process mesh through the CLI: MH_RANKS processes of ``run
+    --distributed --mesh 4 --dist-backend gloo`` on ``corpus``, one
+    document per rank. Every rank's scan kernel runs on the card; gloo
+    carries the all_to_all and the round sums between the processes.
+    ``check_outputs(files)`` holds every rank's mr-{r}.p{rank}.txt together
+    to the generator's truth (a word in two ranks' files fails it). Each
+    rank's manifest must count MESH_SHARDS // MH_RANKS launches per round,
+    the ranks equal rounds, and the work dir only this job's dictionary
+    shards and markers."""
+    import torch
+
+    out_dir, work_dir, logs = work / f"{name}-out", work / f"{name}-work", work / f"{name}-logs"
+    logs.mkdir()
+    port = _free_port()
+    cmds = [[sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--distributed",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(MH_RANKS),
+             "--process-id", str(rank), "--dist-backend", "gloo",
+             "--mesh", str(MESH_SHARDS), "--input", str(corpus), "--output", str(out_dir),
+             "--work", str(work_dir), "--reduce-n", "8",
+             "--manifest", str(logs / "manifest.json"), *app_args]
+            for rank in range(MH_RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank, cmd in enumerate(cmds):
+            with open(logs / f"rank{rank}.log", "wb") as log:
+                procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                              stderr=subprocess.STDOUT))
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=600))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if rcs != [0] * MH_RANKS:
+        for rank in range(MH_RANKS):
+            tail = (logs / f"rank{rank}.log").read_bytes()[-3000:].decode(errors="replace")
+            print(f"--- {name} rank {rank} (rc {rcs[rank]}):\n{tail}", file=sys.stderr)
+    check(rcs == [0] * MH_RANKS, f"{name}: the ranks exited {rcs}")
+    files = sorted(str(p) for p in out_dir.glob("mr-*.txt"))
+    check(len(files) == 8 * MH_RANKS, f"{name}: {len(files)} output files")
+    fields = check_outputs(files)
+    ranks = []
+    d_local = MESH_SHARDS // MH_RANKS
+    for rank in range(MH_RANKS):
+        m = json.loads((logs / f"manifest-p{rank}.json").read_text())
+        s = m["stats"]
+        launches = m["kernel_launches"]["tokenize_hash"]
+        check(s["unknown_keys"] == 0 and s["hash_collisions"] == 0,
+              f"{name} rank {rank}: {s['unknown_keys']} unknown keys, "
+              f"{s['hash_collisions']} hash collisions")
+        check(launches == d_local * s["mesh_rounds"] > 0,
+              f"{name} rank {rank}: tokenize_hash launched {launches} times in "
+              f"{s['mesh_rounds']} rounds of {d_local} shards")
+        check(m["platform"].get("device_name") == torch.cuda.get_device_name(0),
+              f"{name} rank {rank}: the manifest names no card: {m['platform']}")
+        check(m["cluster"]["process_count"] == MH_RANKS
+              and m["cluster"]["process_index"] == rank,
+              f"{name} rank {rank}: cluster {m['cluster']}")
+        check(s["device_mem_high_bytes"] > 0, f"{name} rank {rank}: no device memory")
+        ranks.append({"rank": rank, "launches": {"tokenize_hash": launches},
+                      "wall_s": s["wall_seconds"], "stream_s": s["phase_seconds"]["stream"],
+                      "finalize_s": s["phase_seconds"].get("finalize"),
+                      "egress_s": s["phase_seconds"].get("egress"),
+                      "all_to_all_s": s["all_to_all_s"],
+                      "device_wait_s": s["device_wait_s"], "mesh_rounds": s["mesh_rounds"],
+                      "shuffle_wire_bytes": s["shuffle_wire_bytes"], "chunks": s["chunks"],
+                      "bytes_in": s["bytes_in"], "distinct_keys": s["distinct_keys"],
+                      "dictionary_words": s["dictionary_words"],
+                      "partial_overflow_replays": s["partial_overflow_replays"],
+                      "bucket_skew_replays": s["bucket_skew_replays"],
+                      "device_mem_high_bytes": s["device_mem_high_bytes"]})
+    rounds = {r["mesh_rounds"] for r in ranks}
+    check(len(rounds) == 1, f"{name}: the ranks ran {sorted(rounds)} rounds")
+    left = [p.name for p in work_dir.glob("*run-*")]
+    check(not left, f"{name}: spill run files left in the work dir: {left[:4]}")
+    shards = sorted(p.name for p in work_dir.glob("dict-proc-*"))
+    fps = {n.split("-", 3)[3].split(".")[0] for n in shards}
+    check(len(shards) == 2 * MH_RANKS and len(fps) == 1,
+          f"{name}: dictionary shards and markers in the work dir: {shards}")
+    out = {"phase": name, "exact": True, "map_engine": "device", "ranks": ranks,
+           "wall_s": wall, "processes": MH_RANKS, "mesh_shape": MESH_SHARDS,
+           "dist_backend": "gloo", "device_count": torch.cuda.device_count(),
+           "mesh_rounds": ranks[0]["mesh_rounds"], **fields}
+    emit(out)
+    return out
+
+
+def phase_multihost(work: pathlib.Path, ctx: dict) -> list[dict]:
+    """word_count (``mh``) and grep (``mh-grep``) over documents 0-1 of
+    zipf-ii-256M on two ranks: rank r reads document r. The grep query
+    holds a word only document 0 has and one only document 1 has, so
+    each is printed by whichever rank owns its hash class whether or not
+    that rank read it (the dictionary exchange)."""
+    import numpy as np
+
+    presence = ctx["presence"][:, :2]
+    only = [int(np.flatnonzero(presence[:, d] & ~presence[:, 1 - d])[0]) for d in (0, 1)]
+    ranks = (0, 7, *only)
+    query = ",".join(["w%06x" % r for r in ranks] + [GREP_ABSENT.decode()])
+
+    def words(files):
+        return {"output_lines": check_zipf_outputs(files, ctx["counts01"])}
+
+    def grep(files):
+        return grep_check(presence, ranks, GREP_ABSENT)(
+            types.SimpleNamespace(output_files=files))
+
+    runs = [phase_mh(work, "mh", ctx["top_dir"], words)]
+    runs.append(phase_mh(work, "mh-grep", ctx["top_dir"], grep,
+                         ("--app", "grep", "--query", query)))
+    runs[-1]["only_in_one_document"] = only
+    return runs
 
 
 def _free_port() -> int:
@@ -2058,8 +2238,10 @@ def main() -> int:
         spill_runs = phase_spill(work, corpus, truth, ctx)
         mesh_runs = phase_mesh(work, corpus, truth, ctx)
         ckpt_run = phase_mesh_ckpt(work, ctx["top_dir"], ctx["counts01"])
+        mh_runs = phase_multihost(work, ctx)
         cluster_run = phase_cluster(work, ctx["top_dir"], ctx["counts01"])
         phase_cluster_kill(work, ctx["top_dir"], ctx["counts01"])
+        phase_control_cli(work)
         service_run = phase_service(work, ctx)
         phase_fleet_cli(work)
         phase_cli(work, text, blobs)
@@ -2086,6 +2268,11 @@ def main() -> int:
         "mesh-ckpt": {"tokenize_hash": ckpt_run["launches"]["tokenize_hash"],
                       "rounds": ckpt_run["resumed_rounds"],
                       "counted_in": "the resumed process's manifest"},
+        **{run["phase"]: {"tokenize_hash": [r["launches"]["tokenize_hash"]
+                                            for r in run["ranks"]],
+                          "rounds": run["mesh_rounds"], "chunks": [r["chunks"]
+                                                                   for r in run["ranks"]],
+                          "counted_in": "each rank's manifest"} for run in mh_runs},
         "service-drain": {"tokenize_hash": drain_run["launches"]["tokenize_hash"],
                           "chunks": 2 * drain_run["chunks_per_job"],
                           "counted_in": "the workers' manifests"}})

@@ -1,7 +1,8 @@
 """CLI entry points of the port — the ``run``, ``coordinator``, ``worker``,
 ``service``, ``submit``, ``jobs``, ``merge`` and ``clean`` subcommands of
 ``python -m mapreduce_rust_tpu`` and its analysis commands (``stats``,
-``doctor``, ``trace``, ``watch``, ``prof``, ``lineage``, ``fleet``), with
+``doctor``, ``trace``, ``watch``, ``prof``, ``lineage``, ``fleet``,
+``check``, ``model``), with
 the reference's flags for the fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
@@ -13,6 +14,8 @@ the reference's flags for the fields this package implements:
         [--accum-budget-mb MB] [--dict-budget-words N] [--sync-spill]
         [--profile [--profile-hz HZ]] [--profile-dir DIR] [--lineage]
         [--mesh D [--sharded | --checkpoint-every N] [--resume]]
+        [--distributed --coordinator HOST:PORT --num-processes N
+         --process-id R [--dist-backend {nccl,gloo}]]
     python -m mapreduce_rust_tpu_torch run --app join --input a=DIR b=DIR ...
     python -m mapreduce_rust_tpu_torch coordinator --worker-n N [--port P]
         [--speculate [--speculate-after-frac F]] [--metrics-port P] ...
@@ -33,6 +36,9 @@ the reference's flags for the fields this package implements:
     python -m mapreduce_rust_tpu_torch prof M.json [--folded OUT] [--roofline]
     python -m mapreduce_rust_tpu_torch lineage WORK [--forward C] [--backward R]
     python -m mapreduce_rust_tpu_torch fleet SERVICE_ROOT
+    python -m mapreduce_rust_tpu_torch check WORK [--trace T] [--format json]
+    python -m mapreduce_rust_tpu_torch model [--focus {lease,pipeline,service}]
+        [--budget N] [--depth N] [--seed S] [--mutate CLASS]
 
 Every job command takes ``--trace PATH`` and ``--manifest PATH``; the
 coordinator, the service and the workers suffix them per process.
@@ -264,9 +270,22 @@ def cmd_run(args) -> int:
 
     _arm_crash_dump(args)
     cfg = _cfg(args)
-    inputs, bounds, _names = resolve_corpora(cfg)
-    cfg = dataclasses.replace(cfg, map_n=max(len(inputs), 1))
-    res = run_job(cfg, inputs, app=_app(args), corpus_bounds=bounds)
+    if args.distributed:
+        # Before the job touches the card: the process group picks the
+        # card's backend (NCCL) unless --dist-backend says otherwise.
+        from mapreduce_rust_tpu_torch.parallel.distributed import initialize
+
+        initialize(args.coordinator, args.num_processes, args.process_id,
+                   backend=args.dist_backend, device=cfg.device)
+    try:
+        inputs, bounds, _names = resolve_corpora(cfg)
+        cfg = dataclasses.replace(cfg, map_n=max(len(inputs), 1))
+        res = run_job(cfg, inputs, app=_app(args), corpus_bounds=bounds)
+    finally:
+        if args.distributed:
+            from mapreduce_rust_tpu_torch.parallel.distributed import shutdown
+
+            shutdown()
     print(res.stats.summary())
     print(f"outputs: {', '.join(res.output_files)}")
     return 0
@@ -711,6 +730,25 @@ def cmd_fleet(args) -> int:
     return run_cli(args)
 
 
+def cmd_check(args) -> int:
+    """mrcheck: protocol conformance + happens-before race detection over
+    a run's control-plane artifacts (journal, job report, merged trace).
+    Torch-free, like every analysis command."""
+    from mapreduce_rust_tpu_torch.analysis.mrcheck import run_cli
+
+    return run_cli(args)
+
+
+def cmd_model(args) -> int:
+    """mrmodel: exhaustive bounded exploration of control-plane schedules
+    — the port's Coordinator/JobService under a virtual clock — with DPOR
+    pruning, fault injection at every step, and counterexample shrinking
+    to a chaos-grammar repro. Torch-free, like every analysis command."""
+    from mapreduce_rust_tpu_torch.analysis.mrmodel import run_cli
+
+    return run_cli(args)
+
+
 def cmd_clean(args) -> int:
     """Remove a job's intermediates and outputs (reference src/clean.sh):
     spill runs (``accrun-*``, ``dictrun-*``, and what the reference's
@@ -816,6 +854,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "manifest as stats.lineage; query with the `lineage` "
                    "subcommand. Observational only — outputs are "
                    "byte-identical (MR_LINEAGE=1 for a process tree)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group before the "
+                   "job; the mesh's shards then split over the processes and "
+                   "its all_to_all crosses them")
+    p.add_argument("--coordinator", default="127.0.0.1:12321",
+                   help="--distributed: rendezvous address host:port")
+    p.add_argument("--num-processes", type=int, default=1, dest="num_processes")
+    p.add_argument("--process-id", type=int, default=0, dest="process_id")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   dest="dist_backend",
+                   help="--distributed: collective backend (default nccl on "
+                   "the card, gloo with --device cpu; ranks that share one "
+                   "card need gloo)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("coordinator", help="control-plane scheduler")
@@ -941,6 +992,62 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="text format: print every timeline interval")
     p.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser(
+        "check",
+        help="mrcheck: lease/attempt protocol conformance + happens-before "
+        "race detection over a run's control-plane artifacts",
+    )
+    p.add_argument("target",
+                   help="work dir (coordinator.journal + job_report.json), "
+                   "or a coordinator manifest / job_report.json")
+    p.add_argument("--trace", default=None, metavar="TRACE",
+                   help="merged (or per-process) trace: enables the "
+                   "happens-before race detector and the flow-terminator "
+                   "conformance check")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="explicit coordinator.journal path (default: "
+                   "resolved from the work dir / manifest config)")
+    p.add_argument("--job-report", default=None, metavar="PATH",
+                   dest="job_report",
+                   help="explicit job_report.json path")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full conformance document for CI diffs")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser(
+        "model",
+        help="mrmodel: exhaustive bounded control-plane schedule "
+        "exploration (real coordinator/service logic under a virtual "
+        "clock), DPOR-pruned, with counterexample shrinking and "
+        "chaos-grammar repro export",
+    )
+    p.add_argument("--budget", type=int, default=5000,
+                   help="maximum complete schedules to explore "
+                   "(default 5000)")
+    p.add_argument("--depth", type=int, default=12,
+                   help="maximum events per schedule (default 12)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="rotation seed: which subtrees a truncated budget "
+                   "reaches first (the explored SET under an exhaustive "
+                   "budget is seed-independent)")
+    p.add_argument("--focus", choices=["pipeline", "lease", "service"],
+                   default="lease",
+                   help="which control-plane surface to explore: lease = "
+                   "fifo + speculation + expiry races, pipeline = "
+                   "per-partition readiness, service = multi-job "
+                   "queue/cancel lifecycle (default lease)")
+    p.add_argument("--mutate", default=None, metavar="CLASS",
+                   help="mutation-teeth mode: arm this mrcheck.MUTATIONS "
+                   "class as a seeded fault event and search for a "
+                   "schedule whose corrupted artifacts the invariant "
+                   "catalog flags (exit 1 + shrunk counterexample = the "
+                   "checker has teeth)")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: the full model document for CI diffs")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_model)
 
     p = sub.add_parser(
         "prof",

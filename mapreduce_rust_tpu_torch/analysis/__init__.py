@@ -1,3 +1,4 @@
 """Analysis tools: deterministic fault injection (``chaos``), the runtime
-thread-ownership sanitizer (``sanitize``) and the run doctor's diagnosis
-core (``doctor``). No torch import anywhere in this package."""
+thread-ownership sanitizer (``sanitize``), the run doctor (``doctor``),
+the roofline and lineage readers, and the control-plane checkers
+(``mrcheck``, ``mrmodel``). No torch import anywhere in this package."""

@@ -2,17 +2,16 @@
 
 The port of ``mapreduce_rust_tpu/config.py`` for the fields the
 single-device engines (device engine and host-map engine, every app), the
-single-process mesh (chunked and sequence-parallel, with its checkpoint),
-the coordinator/worker task path, the multi-tenant job service, tracing,
+mesh (chunked and sequence-parallel, with its checkpoint; one process or
+several), the coordinator/worker task path, the multi-tenant job service, tracing,
 the run manifest, the live metrics, the sampling profiler, the device
 trace and the provenance ledger read, with the reference's names, defaults
 and validation — except ``device``, which defaults to ``"cuda"``: the
 port's entry points run on the card and raise without one, unless the
 caller asks for the CPU with ``device="cpu"``.
 
-Two reference fields have no counterpart: ``compilation_cache_dir`` (XLA's
-persistent compile cache; nothing here compiles through XLA) and
-``multihost_barrier_timeout_s`` (the multi-process mesh is not ported).
+One reference field has no counterpart: ``compilation_cache_dir`` (XLA's
+persistent compile cache; nothing here compiles through XLA).
 """
 
 from __future__ import annotations
@@ -80,6 +79,12 @@ class Config:
                                     # offsets; a halo exchange
                                     # (parallel/halo.py) counts straddling
                                     # tokens exactly once
+    multihost_barrier_timeout_s: float = 120.0  # how long a multi-process
+                                    # run waits at the dictionary-exchange
+                                    # barrier for every peer's shard before
+                                    # failing the job (a dead peer's hash
+                                    # classes died with it: fail loudly,
+                                    # rerun the job)
     ingest_threads: int = 4         # host threads for dictionary scans
     prefetch_chunks: int = 8        # chunker read-ahead depth (host queue)
     pipeline_depth: int = 64        # in-flight device steps before the host
@@ -253,6 +258,8 @@ class Config:
             raise ValueError(f"unknown device {self.device!r}; have {DEVICES}")
         if self.merge_capacity < 1:
             raise ValueError("merge_capacity must be >= 1")
+        if self.multihost_barrier_timeout_s <= 0:
+            raise ValueError("multihost_barrier_timeout_s must be positive")
         if self.partial_capacity is not None and self.partial_capacity < 1:
             raise ValueError("partial_capacity must be >= 1 (or None)")
         if self.map_engine not in ("device", "host"):

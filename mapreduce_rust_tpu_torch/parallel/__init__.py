@@ -1,6 +1,8 @@
-"""Parallel tier of one process: the mesh and its all_to_all shuffle, the
-halo exchange of the sequence-parallel stream, the per-shard top-k."""
+"""Parallel tier: the mesh and its all_to_all shuffle (one process or
+several), the halo exchange of the sequence-parallel stream, the per-shard
+top-k, and the torch.distributed bootstrap of the multi-process mesh."""
 
+from mapreduce_rust_tpu_torch.parallel.distributed import initialize, is_federated  # noqa: F401
 from mapreduce_rust_tpu_torch.parallel.halo import make_sharded_tokenizer, shard_stream  # noqa: F401
 from mapreduce_rust_tpu_torch.parallel.shuffle import (  # noqa: F401
     Mesh,
@@ -8,6 +10,8 @@ from mapreduce_rust_tpu_torch.parallel.shuffle import (  # noqa: F401
     local_rows,
     make_kv_shuffle_step_fns,
     make_mesh,
+    make_mh_shuffle_step_fns,
+    make_round_fn,
     make_shuffle_step_fns,
     sharded_empty_state,
 )

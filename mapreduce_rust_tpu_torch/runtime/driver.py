@@ -1,8 +1,9 @@
-"""Chunked streaming driver — the end-to-end engines of one process.
+"""Chunked streaming driver — the end-to-end engines.
 
-The port of ``mapreduce_rust_tpu/runtime/driver.py``'s single-process
-engines. ``run_job`` picks one: the mesh when ``Config.mesh_shape`` > 1,
-else the engine ``Config.map_engine`` names.
+The port of ``mapreduce_rust_tpu/runtime/driver.py``'s engines. ``run_job``
+picks one: the multi-process mesh when this process is one of several in a
+``torch.distributed`` process group, the mesh when ``Config.mesh_shape`` >
+1, else the engine ``Config.map_engine`` names.
 
 **Device engine** (``"device"``, the default: ``_stream_single``). A host
 loop streams whitespace-aligned chunks (runtime/chunker.py) through a
@@ -46,6 +47,13 @@ halo exchange (``_stream_sharded``, parallel/halo.py). Overflowing groups
 replay through wider tiers; the state is sharded by hash class, so its
 shards fold into the host accumulator independently (top_k fetches only
 per-shard candidates when that is exact, parallel/topk.py).
+
+**Multi-process mesh** (a process group of N > 1 ranks,
+parallel/distributed.py: ``_stream_multihost``). Rank r owns shards
+``[r * D/N, (r+1) * D/N)`` of the global mesh and reads every N-th input;
+the rounds run in lockstep over ``torch.distributed`` collectives, each
+rank folds and writes only its own hash classes (``mr-{r}.p{rank}.txt``),
+and the ranks exchange dictionary shards through the work dir.
 
 At egress the final table joins the hash→word dictionary and the app
 formats its partitions, written as ``mr-{r}.txt``.
@@ -533,7 +541,9 @@ class _IngestStream:
     the consumer (bounded queue), and a thread pool runs the dictionary
     scans; scan results fold into the Dictionary only on the consumer
     thread. doc_id = doc_id_offset + position in inputs (the flat listing
-    of every corpus; a worker's map task passes its task id). The first
+    of every corpus; a worker's map task passes its task id), or
+    ``doc_ids[position]`` when given (a rank of the multi-process mesh
+    reads every N-th input and keeps the global ids). The first
     ``skip_chunks`` chunks are read and dropped unscanned: a resumed mesh
     job's checkpoint already holds them.
 
@@ -544,7 +554,8 @@ class _IngestStream:
 
     def __init__(self, cfg: Config, inputs: Sequence[str], stats: JobStats,
                  dictionary: Dictionary, host_mask, doc_id_offset: int = 0,
-                 lineage_range: bool = False, skip_chunks: int = 0) -> None:
+                 lineage_range: bool = False, skip_chunks: int = 0,
+                 doc_ids: "Sequence[int] | None" = None) -> None:
         self.cfg = cfg
         self.skip_chunks = skip_chunks
         self.stats = stats
@@ -561,6 +572,7 @@ class _IngestStream:
         self.q: queue.Queue = queue.Queue(maxsize=max(cfg.prefetch_chunks, 1))
         self.err: BaseException | None = None
         self._stop = False
+        self._doc_ids = list(doc_ids) if doc_ids is not None else None
         self._thread = threading.Thread(
             target=self._produce, args=(list(inputs), doc_id_offset),
             name="mr/ingest", daemon=True
@@ -583,7 +595,7 @@ class _IngestStream:
         stats.register_writer()
         try:
             for i, path in enumerate(inputs):
-                doc = doc_id_offset + i
+                doc = self._doc_ids[i] if self._doc_ids else doc_id_offset + i
                 stats.bytes_in += os.path.getsize(path)
                 with open(path, "rb") as f:
                     for chunk in chunk_stream(f, doc, self.cfg.chunk_bytes):
@@ -1694,10 +1706,11 @@ def _a2a_span(stats: JobStats, **span_args):
 
 
 def _ship(host: torch.Tensor, mesh) -> list:
-    """Row i of a ``[D, N]`` host tensor onto shard i's device, as an
-    asynchronous copy; the caller keeps ``host`` alive until the copy is
-    known to be done (a drain)."""
-    return [host[i].to(dev, non_blocking=True) for i, dev in enumerate(mesh.devices)]
+    """Row i of a ``[d_local, N]`` host tensor onto this process's shard
+    i's device, as an asynchronous copy; the caller keeps ``host`` alive
+    until the copy is known to be done (a drain)."""
+    return [host[i].to(dev, non_blocking=True)
+            for i, dev in enumerate(mesh.local_devices)]
 
 
 def _pinned(arr: np.ndarray, mesh) -> torch.Tensor:
@@ -2105,6 +2118,176 @@ def _stream_mesh(cfg: Config, app: App, inputs, stats: JobStats,
     _finish_mesh_state(app, state, stats, acc)
 
 
+def _stream_multihost(cfg: Config, app: App, inputs, stats: JobStats,
+                      acc: HostAccumulator, dictionary) -> None:
+    """The mesh pipeline over several processes (parallel/distributed.py):
+    control stays on the coordinator's RPC plane, data rides
+    ``torch.distributed`` collectives, and the shared work dir carries
+    only egress artifacts (dictionary shards and partition files).
+
+    Per process: ingest ONLY the inputs assigned to it (round-robin by
+    global doc id), feed one chunk to each of its own shards per round,
+    and run the same step functions every other process runs. Per-round
+    decisions (replay? continue?) come back summed over every rank, so
+    every process agrees without seeing another's shards. Rounds are in
+    lockstep: a process whose inputs are exhausted keeps contributing
+    space-padded groups until the summed have-data count reaches zero (a
+    rank that left early would leave its peers stuck in a collective). At
+    the end each process folds only its own state shards (its hash
+    classes), publishes its dictionary shard, and merges everyone's — so a
+    process can print words whose bytes only another process read."""
+    from mapreduce_rust_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+    from mapreduce_rust_tpu_torch.parallel.shuffle import (
+        default_bucket_cap,
+        make_mesh,
+        make_mh_shuffle_step_fns,
+        sharded_empty_state,
+        wire_bytes_per_round,
+    )
+
+    if cfg.checkpoint_every_groups or cfg.resume or cfg.sharded_stream:
+        raise ValueError(
+            "checkpoint/resume and sharded_stream are single-process features"
+        )
+    pid, nproc = process_index(), process_count()
+    mesh = make_mesh(cfg.mesh_shape, cfg.device, world=nproc, rank=pid)
+    d, d_local = mesh.size, mesh.d_local
+    u_cap = cfg.effective_partial_capacity()
+    bucket_cap = default_bucket_cap(u_cap, d, cfg.bucket_capacity_factor)
+    fast = make_mh_shuffle_step_fns(app, u_cap, bucket_cap, mesh)
+    state = sharded_empty_state(mesh, max(cfg.merge_capacity // d, 16))
+
+    # Inputs round-robin by GLOBAL doc id, so inverted_index doc ids match
+    # a single-process run over the same sorted listing.
+    my_inputs = [(i, p) for i, p in enumerate(inputs) if i % nproc == pid]
+    ingest = _IngestStream(
+        cfg, [p for _i, p in my_inputs], stats, dictionary, app.host_mask,
+        lineage_range=app.partition_mode == "range",
+        doc_ids=[i for i, _p in my_inputs],
+    )
+
+    def run_round(host: torch.Tensor, docs: list, have: int) -> bool:
+        nonlocal state
+        stats.mesh_rounds += 1
+        wb = wire_bytes_per_round(d, bucket_cap)
+        stats.shuffle_wire_bytes += wb
+        with _a2a_span(stats, round=stats.mesh_rounds, tier="fast", wire_bytes=wb):
+            local, totals = fast[0](_ship(host, mesh), docs, have)
+            state, evicted, ev_counts = fast[1](state, local)
+        # ONE readback per round: the summed flags (every rank reads the
+        # same) and this process's eviction counts.
+        t0 = time.perf_counter()
+        with trace_span("device.drain", steps=1):
+            got = torch.cat([totals, ev_counts]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        stats.device_wait_s += dt
+        stats.record_hist("device.drain_s", dt)
+        _sample_device_memory(stats)
+        have_n, p_n, b_n = (int(x) for x in got[:3])
+        if p_n > 0 or b_n > 0:
+            # Every rank saw the same sums, so every rank replays together.
+            if p_n > 0:
+                stats.partial_overflow_replays += 1
+                tier_cap = cfg.chunk_bytes
+                fns = make_mh_shuffle_step_fns(app, tier_cap, tier_cap, mesh)
+            else:
+                stats.bucket_skew_replays += 1
+                tier_cap = u_cap
+                fns = make_mh_shuffle_step_fns(app, u_cap, u_cap, mesh)
+            stats.mesh_rounds += 1
+            wb = wire_bytes_per_round(d, tier_cap)
+            stats.shuffle_wire_bytes += wb
+            with _a2a_span(stats, round=stats.mesh_rounds, tier="replay",
+                           wire_bytes=wb):
+                local, _totals = fns[0](_ship(host, mesh), docs, have)
+                state, evicted2, ev2 = fns[1](state, local)
+            _replay_readback(stats, acc, evicted2, ev2)
+        ev_n = int(got[3:].sum())
+        if ev_n > 0:
+            _spill_shards(stats, acc, evicted, ev_n)
+        return have_n > 0
+
+    it = iter(ingest)
+    exhausted = False
+    try:
+        while True:
+            rows: list[np.ndarray] = []
+            docs: list[int] = []
+            while not exhausted and len(rows) < d_local:
+                try:
+                    chunk = next(it)
+                except StopIteration:
+                    exhausted = True
+                    break
+                rows.append(chunk.data)
+                docs.append(chunk.doc_id)
+            have = 1 if rows else 0
+            while len(rows) < d_local:  # pad this rank's share with spaces
+                rows.append(np.full(cfg.chunk_bytes, 0x20, dtype=np.uint8))
+                docs.append(0)
+            if not run_round(_pinned(np.stack(rows), mesh), docs, have):
+                break
+    except BaseException:
+        ingest.close(abort=True)
+        raise
+    ingest.close()
+    for st in state:
+        acc.add_batch(st)
+
+    # Dictionary exchange over the shared work dir: each process publishes
+    # its shard and a done marker, then merges everyone's (a shard may own
+    # keys whose bytes only another process read). The names carry the
+    # job fingerprint and the process count, so a leftover marker of
+    # another job (or of the same inputs split over another number of
+    # processes) can never satisfy, or break, the barrier; a leftover of
+    # the same job holds the same shard. `clean` removes dict-*.
+    fp = f"{_job_fingerprint(cfg, app, inputs, d)[:16]}-n{nproc}"
+
+    def shard_path(proc: int) -> str:
+        return os.path.join(cfg.work_dir, f"dict-proc-{proc}-{fp}.txt")
+
+    os.makedirs(cfg.work_dir, exist_ok=True)
+    tmp = shard_path(pid) + ".tmp"
+    dictionary.save(tmp)
+    os.replace(tmp, shard_path(pid))
+    open(shard_path(pid) + ".done", "w").close()
+    _await_shard_files(shard_path, nproc, cfg.multihost_barrier_timeout_s)
+    for other in range(nproc):
+        if other != pid:
+            dictionary.merge(Dictionary.load(shard_path(other)))
+
+
+def _await_shard_files(shard_path, nproc: int, timeout_s: float) -> None:
+    """The dictionary-exchange barrier of the multi-process mesh: wait for
+    every process's published shard and done marker. A peer that died
+    before publishing cannot be waited out (its hash classes died with
+    it), so the job fails promptly, naming every missing rank; the timeout
+    is ``Config.multihost_barrier_timeout_s`` (a slow shared filesystem
+    may need more than the default)."""
+    deadline = time.monotonic() + timeout_s  # immune to wall-clock steps
+    waiting = set(range(nproc))
+    while waiting:
+        waiting -= {
+            other for other in waiting
+            if os.path.exists(shard_path(other) + ".done")
+            and os.path.exists(shard_path(other))
+        }
+        if not waiting:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"dictionary shards from process(es) {sorted(waiting)} never "
+                f"arrived within {timeout_s:.0f}s (multihost_barrier_timeout_s)"
+                " — peer death or a stalled shared work dir; results would be"
+                " missing those hash classes, so the job fails instead."
+                " Re-run the job."
+            )
+        time.sleep(0.05)
+
+
 #: Chrome-trace categories of device activity in a torch.profiler trace.
 DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -2198,11 +2381,21 @@ def run_job(
         inputs = list(inputs)
     if not inputs:
         raise ValueError("no input files")
+    from mapreduce_rust_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+
+    nproc = process_count()
     budgeted = (cfg.host_accum_budget_mb is not None
                 or cfg.dictionary_budget_words is not None)
-    if budgeted and (cfg.checkpoint_every_groups or cfg.resume):
-        # A checkpoint snapshots the accumulator and dictionary in RAM.
-        raise ValueError("egress budgets are incompatible with checkpoint/resume")
+    if budgeted and (cfg.checkpoint_every_groups or cfg.resume or nproc > 1):
+        # A checkpoint snapshots the accumulator and dictionary in RAM, and
+        # the ranks' dictionary exchange is of whole in-RAM shards.
+        raise ValueError(
+            "egress budgets are incompatible with checkpoint/resume and "
+            "multi-process runs"
+        )
     if budgeted and not write_outputs:
         # The streaming egress delivers results only through output files:
         # without them a budgeted run would compute everything and return
@@ -2232,13 +2425,14 @@ def run_job(
         spill_dir=cfg.work_dir, async_spill=cfg.spill_async,
     )
     # The host-map engine splits the dictionary into key-hash-disjoint
-    # shards, one per fold thread; the device engine and the mesh (which
-    # tokenizes on the device whatever map_engine says, and checkpoints a
-    # plain Dictionary) fold on their consumer. The word budget splits
-    # across the shards, so it bounds the job, not each shard.
+    # shards, one per fold thread; the device engine and the meshes (which
+    # tokenize on the device whatever map_engine says, checkpoint a plain
+    # Dictionary, or exchange per-process shards) fold on their consumer.
+    # The word budget splits across the shards, so it bounds the job, not
+    # each shard.
     mesh = bool(cfg.mesh_shape and cfg.mesh_shape > 1)
     fold_shards = (cfg.effective_fold_shards()
-                   if cfg.map_engine == "host" and not mesh else 1)
+                   if cfg.map_engine == "host" and not mesh and nproc == 1 else 1)
     if fold_shards > 1:
         per_shard = (max(1, cfg.dictionary_budget_words // fold_shards)
                      if cfg.dictionary_budget_words is not None else None)
@@ -2309,7 +2503,9 @@ def run_job(
                     "map_engine='host' applies to the single-device driver only; "
                     "mesh runs tokenize on the device (the mesh IS the map engine)"
                 )
-            if mesh and cfg.sharded_stream:
+            if nproc > 1:
+                _stream_multihost(cfg, app, inputs, stats, acc, dictionary)
+            elif mesh and cfg.sharded_stream:
                 _stream_sharded(cfg, app, inputs, stats, acc, dictionary)
             elif mesh:
                 _stream_mesh(cfg, app, inputs, stats, acc, dictionary)
@@ -2329,8 +2525,12 @@ def run_job(
         if streaming:
             table, output_files = {}, _stream_finalize(cfg, app, stats, acc, dictionary)
         else:
+            # Several processes: each writes ITS hash classes' lines under a
+            # process-suffixed name; `merge` reads them all (for top_k,
+            # App.merge_lines is the cross-process selection).
+            suffix = f".p{process_index()}" if nproc > 1 else ""
             table, output_files = _ram_finalize(cfg, app, stats, acc, dictionary,
-                                                write_outputs)
+                                                write_outputs, suffix)
         stats.wall_seconds = time.perf_counter() - t0
         log.info("job %s done: %s", app.name, stats.summary())
     finally:
@@ -2381,8 +2581,16 @@ def run_job(
                 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import tokenize_hash
 
                 extra["kernel_launches"] = {"tokenize_hash": tokenize_hash.launches}
+            tag = None
+            if nproc > 1:
+                from mapreduce_rust_tpu_torch.parallel.distributed import cluster_info
+
+                extra["cluster"] = cluster_info(cfg.mesh_shape)
+                # Per-process file names, like the .p{rank} outputs:
+                # co-hosted ranks must not clobber each other's files.
+                tag = f"p{process_index()}"
             flush_run_artifacts(
-                cfg, tracer, logger=log, stats=stats, app_name=app.name,
+                cfg, tracer, tag=tag, logger=log, stats=stats, app_name=app.name,
                 inputs=inputs, output_files=output_files, extra=extra or None,
             )
         if registry is not None:
@@ -2402,9 +2610,11 @@ def run_job(
 
 
 def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
-                  dictionary, write_outputs: bool) -> tuple[dict, list[str]]:
+                  dictionary, write_outputs: bool,
+                  suffix: str = "") -> tuple[dict, list[str]]:
     """The in-RAM egress: one (word, value) item per key through
-    ``app.finalize``; returns the word → value table and the output files.
+    ``app.finalize``; returns the word → value table and the output files
+    ``mr-{r}{suffix}.txt``.
     A spilled dictionary (an app that overrides finalize, like top_k) is
     rehydrated once from its sorted stream — exact, but unbounded."""
     ledger = active_ledger()
@@ -2434,7 +2644,7 @@ def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,
         if write_outputs:
             os.makedirs(cfg.output_dir, exist_ok=True)
             for r in range(cfg.reduce_n):
-                path = os.path.join(cfg.output_dir, f"mr-{r}.txt")
+                path = os.path.join(cfg.output_dir, f"mr-{r}{suffix}.txt")
                 written = 0
                 with open(path, "wb") as f:
                     for line in parts.get(r, []):

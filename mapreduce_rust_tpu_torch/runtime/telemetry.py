@@ -704,7 +704,10 @@ def platform_info() -> dict:
             info["device_name"] = torch.cuda.get_device_name(dev)
             info["device_memory_bytes"] = int(
                 torch.cuda.get_device_properties(dev).total_memory)
-            info["process_count"] = 1
+            dist = torch.distributed
+            info["process_count"] = (
+                dist.get_world_size()
+                if dist.is_available() and dist.is_initialized() else 1)
         except Exception:  # device query failed — manifest still writes
             info["backend"] = "unavailable"
     return info

@@ -283,6 +283,27 @@ for kw in (dict(checkpoint_every_groups=1), dict(sharded_stream=True)):
     assert res.table == {b"hello": 3, b"world": 1, "café".encode(): 1}, res.table
     assert res.stats.mesh_rounds > 0
 import mapreduce_rust_tpu_torch.parallel.topk
+# The multi-process mesh's bootstrap (a one-rank gloo group: the rounds'
+# all_reduce and the all_to_all across processes) and the control-plane
+# checkers over the cluster's artifacts.
+import torch
+from mapreduce_rust_tpu_torch.analysis.mrcheck import run_check
+from mapreduce_rust_tpu_torch.analysis.mrmodel import run_model
+from mapreduce_rust_tpu_torch.parallel import distributed
+from mapreduce_rust_tpu_torch.parallel.shuffle import make_mesh, make_mh_shuffle_step_fns
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    gport = s.getsockname()[1]
+distributed.initialize(f"127.0.0.1:{gport}", 1, 0, device="cpu")
+assert distributed.cluster_info(2)["local_devices"] == 2
+mesh = make_mesh(2, "cpu", world=1, rank=0)
+chunk = torch.tensor(list(b"hello world hello"), dtype=torch.uint8)
+local, totals = make_mh_shuffle_step_fns(get_app("word_count"), 64, 64, mesh)[0](
+    [chunk, chunk], [0, 0], 1)
+assert totals.tolist() == [1, 0, 0] and sum(int(x.valid.sum()) for x in local) == 2
+distributed.shutdown()
+assert run_check(sys.argv[2] + "/cw")["ok"]
+assert run_model(focus="lease", budget=20, depth=6)["ok"]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))
 print("LOADED", bad)
@@ -342,14 +363,16 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     "field", ["checkpoint_every_groups", "mesh_shape", "resume", "sharded_stream"])
 def test_config_rejects_unported_fields(field):
     # The mesh's four fields, once refused, are ported: each is accepted
-    # with the reference's meaning; only the XLA compile cache and the
-    # multi-process barrier have no field. The halo keeps its validation.
+    # with the reference's meaning, and so is the multi-process barrier's
+    # timeout; only the XLA compile cache has no field. The halo keeps its
+    # validation.
     value = {"mesh_shape": 2, "checkpoint_every_groups": 1}.get(field, True)
     assert getattr(Config(**{field: value}), field) == \
         getattr(JaxConfig(**{field: value}), field) == value
-    for missing in ("compilation_cache_dir", "multihost_barrier_timeout_s"):
-        with pytest.raises(TypeError, match=missing):
-            Config(**{missing: None})
+    with pytest.raises(TypeError, match="compilation_cache_dir"):
+        Config(compilation_cache_dir=None)
+    assert Config(multihost_barrier_timeout_s=5.0).multihost_barrier_timeout_s == \
+        JaxConfig(multihost_barrier_timeout_s=5.0).multihost_barrier_timeout_s == 5.0
     for chunk_bytes in (128, 96):
         with pytest.raises(ValueError, match="max_word_len"):
             Config(chunk_bytes=chunk_bytes)
