@@ -13,6 +13,14 @@ one JSON line; any failure raises and ends the run:
 2. build    — every kernel of the path compiled from the checkout's
               sources with nvcc (one nvcc per source), and the native host
               library (native/loader.cpp) with g++, all started together;
+   bench    — ``python3 bench_torch.py`` in a subprocess with every leg on
+              at small sizes (BENCH_ENV: a 16 MB target, one device run,
+              one overhead run per side), then ``--sort-leg`` on 8 MB: exit
+              0, one GB/s line with a value, vs_baseline and platform
+              cuda, the Zipf and sort legs exact, each leg's tokenize_hash
+              launches equal to its chunks, and the measured leg's run
+              manifest naming the card with a kernel-build ("compile")
+              block;
 3. kernel   — both entries of the scan kernel, hash_scan and the fused
               tokenize_hash (last_is_boundary True and False), held bit for
               bit against their plain versions on the card at the main
@@ -57,30 +65,34 @@ one JSON line; any failure raises and ends the run:
               on documents 0-1 of zipf-ii-256M (64 MiB, cut from zipf-256M
               to make room for the mesh phases);
 9. ii       — a seeded 256 MiB Zipf corpus in 8 documents (the generator
-              of the reference bench's inverted-index leg) through
-              inverted_index on the device engine, default Config: every
-              posting list equal to its row of the generator's presence
-              matrix; evictions cut posting sets, the host unions them;
+              of the reference bench's inverted-index leg); its documents
+              0-3 (128 MiB, 2.23 M posting pairs against the 2^21 state)
+              through inverted_index on the device engine, default
+              Config: every posting list equal to its row of the
+              generator's presence matrix; evictions cut posting sets,
+              the host unions them;
    ii-host  — the same job on the host engine with a 2^18-key state and
               16 MiB windows;
    grep     — grep on the device engine over documents 0-3, for the words
               of five ranks and one word outside the vocabulary: each line
               equal to the presence row, no line for an absent word;
-   join     — join on the host engine, corpus a = documents 0-3, b = 4-7:
+   join     — join on the host engine, corpus a = documents 0-1, b = 2-3:
               for every rank on both sides exactly the cross product of
               its relative doc ids;
    top_k    — top_k (k = 20) on the device engine over documents 0-1,
               equal to the generator's 20 best by (-count, word);
    prof-host — word_count on documents 0-1 through the host engine with
               the profiler, the ledger, a device trace and a manifest:
-              exact, no scan kernel launched;
+              exact, no scan kernel launched, the packed merge's per-dispatch
+              cost (``merge_cost``) in the manifest;
    calibrate — analysis/roofline.calibrate in this process into a machine
               file of the run's own: the card's row with the data sheet's
               HBM rate;
    analysis-cli — ``python -m mapreduce_rust_tpu_torch`` stats (one
               manifest, then main's against prof's with --no-gate),
               doctor (with the trace), prof --roofline --folded over
-              prof-host's manifest (no fraction above 1.05), lineage
+              prof-host's manifest (no fraction above 1.05, a
+              device-merge row from its merge_cost), lineage
               (summary, a forward query, a backward query whose chunks are
               in the ledger) and trace merge, each in a subprocess with its
               own timeout, exit 0 and output; after the service phase,
@@ -89,7 +101,7 @@ one JSON line; any failure raises and ends the run:
               through a lease expiry and a re-execution) and ``model
               --focus lease`` at depth 10, each exiting 0 in a process
               that never loads torch;
-10. sort / sort-host — a seeded 48 MiB Zipf corpus through sort on each
+10. sort / sort-host — a seeded 24 MiB Zipf corpus through sort on each
               engine: mr-{r}.txt concatenated in partition order is in
               order and holds exactly the generator's counts; partition
               skew and the splitter pre-pass reported;
@@ -104,7 +116,8 @@ one JSON line; any failure raises and ends the run:
               the dictionary tier writes runs;
    spill-ii   — inverted_index on zipf-ii-256M, device engine, 16 MiB and
               2^19 words: accumulator runs of ``distinct`` rows;
-   spill-sort — sort on zipf-sort-48M under ``_zipf_cfg`` with the inline
+   spill-sort — sort on a 48 MiB corpus of the same generator (the
+              reference bench's sort size) under ``_zipf_cfg`` with the inline
               (sync) spill writer;
    spill-topk — top_k on documents 0-1 with a 2^17-word dictionary
               budget, through the rehydrate path (top_k overrides
@@ -121,8 +134,8 @@ one JSON line; any failure raises and ends the run:
               four shards anywhere, the halo repairing the seams): exact,
               byte-identical to main's, no halo truncation, forced group
               cuts reported;
-   mesh-ii    — inverted_index on zipf-ii-256M against the presence
-              matrix (the distinct op through the shuffle);
+   mesh-ii    — inverted_index on documents 0-3 of zipf-ii-256M against
+              the presence matrix (the distinct op through the shuffle);
    mesh-replay — documents 0-1 of zipf-ii-256M in 1 MiB chunks, the
               partial capacity at the median of the groups' largest
               per-chunk distinct counts and a bucket slack of 0.5, so
@@ -245,8 +258,11 @@ ZIPF_FILES = 4
 II_SEED = 20260731
 II_BYTES = 256 << 20
 II_DOCS = 8
-#: The sort corpus: the reference bench's sort leg size (bench.py:517).
-SORT_BYTES = 48 << 20
+#: The sort corpus: half the reference bench's sort leg size (bench.py:517),
+#: which bench_torch.py --sort-leg runs; spill-sort keeps the full size,
+#: whose ~0.7 M distinct words pass its 2^19-word dictionary budget.
+SORT_BYTES = 24 << 20
+SPILL_SORT_BYTES = 48 << 20
 #: The reference bench's budgets-engaged config ``_zipf_cfg``
 #: (bench.py:159-172), field for field; reduce_n and paths are the phase's.
 ZIPF_CFG = dict(map_engine="host", host_window_bytes=16 << 20, chunk_bytes=1 << 20,
@@ -1089,9 +1105,13 @@ def phase_prof_host(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
                     profile=True, lineage=True, profile_dir=str(work / "prof-host-tp"),
                     manifest_path=str(work / "prof-host-manifest.json"))
     manifest = json.loads((work / "prof-host-manifest.json").read_text())
+    mc = manifest.get("merge_cost") or {}
+    check(run["merge_dispatches"] > 0 and mc.get("flops", 0) > 0
+          and mc.get("bytes_accessed", 0) > 0,
+          f"prof-host: no merge_cost for {run['merge_dispatches']} dispatches: {mc}")
     dev = device_trace_summary(work / "prof-host-tp", run["phase_seconds"]["stream"])
     out = {"phase": "prof-host", "wall_s": run["wall_s"], "launches": run["launches"],
-           "profile": profile_summary(manifest),
+           "merge_cost": mc, "profile": profile_summary(manifest),
            "device_trace": {k: dev[k] for k in ("device_events", "device_busy_share",
                                                 "kernel_launches", "cpu_op_threads",
                                                 "trace_bytes")},
@@ -1182,6 +1202,8 @@ def phase_prof_cli(work: pathlib.Path, machine: pathlib.Path) -> None:
     check(stages, "prof: no roofline stage")
     over = [s for s in stages if s.get("frac") is not None and s["frac"] > 1.05]
     check(not over, f"prof: roofline fractions above 1.05: {over}")
+    check(any(s["stage"] == "device-merge" for s in stages),
+          f"prof: no device-merge row from prof-host's merge_cost: {stages}")
     emit({"phase": "roofline", "stages": stages,
           "device_hbm_gbs": doc["roofline"]["machine"]["device_hbm_gbs"]})
     lw = str(work / "prof-work")
@@ -1208,6 +1230,78 @@ def phase_fleet_cli(work: pathlib.Path) -> None:
     check(all(0.0 <= u <= 1.0 for u in utils), f"fleet: utilizations outside [0, 1]: {utils}")
     emit({"phase": "fleet", "util_frac": utils[0], "worker_util_frac": utils[1:],
           "bubble_frac": doc["fleet"]["bubble_frac"], "jobs": len(doc["jobs"])})
+
+
+#: The bench phase: bench_torch.py with every leg on at a smoke's sizes
+#: (one device run, one overhead run per side), then its --sort-leg.
+BENCH_ENV = {"BENCH_TARGET_MB": "16", "BENCH_BASELINE_MB": "16", "BENCH_ZIPF_MB": "16",
+             "BENCH_METRICS_OVERHEAD_MB": "8", "BENCH_DEVICE_RUNS": "1",
+             "BENCH_OVERHEAD_RUNS": "1", "BENCH_SORT_MB": "8"}
+
+
+def _bench_line(work: pathlib.Path, args: list, timeout: int) -> dict:
+    """Run bench_torch.py with BENCH_ENV and BENCH_DIR in the work dir; its
+    exit code must be 0 and its one stdout line parse."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_ENV, BENCH_DIR=str(work / "bench"))
+    r = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), *args],
+                       capture_output=True, text=True, timeout=timeout, cwd=ROOT, env=env)
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and len(lines) == 1,
+          f"bench {args}: exit {r.returncode}, stdout {r.stdout[-1500:]}\n"
+          f"{r.stderr[-2500:]}")
+    return json.loads(lines[0])
+
+
+def phase_bench(work: pathlib.Path) -> dict:
+    """bench_torch.py end to end on the card: the GB/s line (value,
+    vs_baseline, platform cuda), the Zipf leg exact, every leg's
+    tokenize_hash launches equal to its chunks, and the measured leg's
+    run manifest naming the card with a compile block; then --sort-leg,
+    exact and ordered."""
+    import torch
+
+    t0 = time.perf_counter()
+    manifest = work / "bench-manifest.json"
+    line = _bench_line(work, ["--manifest", str(manifest)], timeout=400)
+    check(line["unit"] == "GB/s" and line["value"] is not None
+          and line["vs_baseline"] is not None and line["platform"] == "cuda"
+          and "error" not in line, f"bench: {line}")
+    check(line["zipf"]["exact"], f"bench: zipf leg not exact: {line['zipf']}")
+    run = json.loads((work / "bench-manifest-run.json").read_text())
+    chunks = run["stats"]["chunks"]
+    launches = (run.get("kernel_launches") or {}).get("tokenize_hash")
+    check(run["platform"].get("device_name") == torch.cuda.get_device_name(0),
+          f"bench: the run manifest names {run['platform'].get('device_name')}")
+    check(chunks > 0 and launches == chunks,
+          f"bench: {launches} tokenize_hash launches for {chunks} chunks")
+    check((run["stats"].get("compile") or {}).get("count", 0) >= 1,
+          f"bench: no compile block in the run manifest: {run['stats'].get('compile')}")
+    legs = {"zipf": line["zipf"], **{k: line[k] for k in (
+        "metrics_overhead", "profile_overhead", "lineage_overhead")}}
+    for name, leg in legs.items():
+        check(leg["launches"] == leg["chunks"] > 0,
+              f"bench {name}: {leg['launches']} launches for {leg['chunks']} chunks")
+        check(leg.get("outputs_identical", True), f"bench {name}: outputs differ")
+    bench_s = time.perf_counter() - t0
+    sort = _bench_line(work, ["--sort-leg"], timeout=200)
+    check(sort["sort_exact"] and sort["sort_launches"] == sort["sort_chunks"] > 0,
+          f"bench --sort-leg: {sort}")
+    out = {"phase": "bench", "seconds": time.perf_counter() - t0, "bench_s": bench_s,
+           "value_gbs": line["value"], "vs_baseline": line["vs_baseline"],
+           "metric": line["metric"], "compile": run["stats"]["compile"],
+           "launches": {"device": launches, **{k: v["launches"] for k, v in legs.items()},
+                        "sort": sort["sort_launches"]},
+           "chunks": {"device": chunks, **{k: v["chunks"] for k, v in legs.items()},
+                      "sort": sort["sort_chunks"]},
+           "micro": line["device_micro"], "zipf_wall_s": line["zipf"]["wall_s"],
+           "overhead_frac": {k: line[k]["frac"] for k in (
+               "metrics_overhead", "profile_overhead", "lineage_overhead")},
+           "doctor": line["doctor"].get("bottleneck"), "sort_wall_s": sort["sort_wall_s"]}
+    emit(out)
+    return out
 
 
 def write_text_corpus(dirpath: pathlib.Path) -> list[bytes]:
@@ -1326,7 +1420,7 @@ def phase_cli(work: pathlib.Path, corpus: pathlib.Path, blobs: list[bytes]) -> N
 
 def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     """The five other apps on the zipf-ii corpus (and sort on its own
-    48 MiB corpus), each held to its generator's truth. Returns the runs
+    24 MiB corpus), each held to its generator's truth. Returns the runs
     and the corpora with their truths, for the spill phases."""
     import os
 
@@ -1342,27 +1436,28 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
           "posting_pairs": int(presence.sum()), "seed": II_SEED,
           "seconds": time.perf_counter() - t0})
     docs = sorted(ii_dir.glob("doc-*.txt"))
-    subsets = {"left": docs[:4], "right": docs[4:], "top": docs[:2]}
+    subsets = {"left": docs[:4], "top": docs[:2], "mid": docs[2:4]}
     for name, members in subsets.items():
         (work / name).mkdir()
         for path in members:
             os.link(path, work / name / path.name)
 
     runs = []
-    ii = drive_job("ii", work, ii_check(presence), app=get_app("inverted_index"),
-                   corpus=ii_dir)
+    ii = drive_job("ii", work, ii_check(presence[:, :4]), app=get_app("inverted_index"),
+                   corpus=work / "left")
     check(ii["spilled_keys"] > 0, "ii: no posting pairs were evicted")
     runs.append(ii)
     phase_step("step-ii", docs[0], ii, get_app("inverted_index"))
-    runs.append(drive_job("ii-host", work, ii_check(presence), app=get_app("inverted_index"),
-                          corpus=ii_dir, map_engine="host", merge_capacity=1 << 18,
+    runs.append(drive_job("ii-host", work, ii_check(presence[:, :4]),
+                          app=get_app("inverted_index"), corpus=work / "left",
+                          map_engine="host", merge_capacity=1 << 18,
                           host_window_bytes=16 << 20))
     runs.append(drive_job(
         "grep", work, grep_check(presence[:, :4], GREP_RANKS, GREP_ABSENT),
         app=get_app("grep", query=GREP_QUERY), corpus=work / "left"))
     runs.append(drive_job(
-        "join", work, join_check(presence, 4), app=get_app("join"), map_engine="host",
-        input_dirs=(("a", str(work / "left")), ("b", str(work / "right")))))
+        "join", work, join_check(presence[:, :4], 2), app=get_app("join"), map_engine="host",
+        input_dirs=(("a", str(work / "top")), ("b", str(work / "mid")))))
     runs.append(drive_job("top_k", work, topk_check(counts01, 20), app=get_app("top_k", k=20),
                           corpus=work / "top"))
 
@@ -1370,15 +1465,14 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     sort_dir.mkdir()
     t0 = time.perf_counter()
     truth = write_zipf_corpus(sort_dir, SORT_BYTES, 1)
-    emit({"phase": "corpus", "name": "zipf-sort-48M",
+    emit({"phase": "corpus", "name": "zipf-sort-24M",
           "bytes": sum(p.stat().st_size for p in sort_dir.iterdir()),
           "tokens": int(truth.sum()), "seconds": time.perf_counter() - t0})
     for name, engine in (("sort", "device"), ("sort-host", "host")):
         runs.append(drive_job(name, work, sort_check(truth), app=get_app("sort"),
                               corpus=sort_dir, map_engine=engine))
     return runs, {"ii_dir": ii_dir, "presence": presence, "counts01": counts01,
-                  "top_dir": work / "top", "left_dir": work / "left", "sort_dir": sort_dir,
-                  "sort_truth": truth}
+                  "top_dir": work / "top", "left_dir": work / "left"}
 
 
 def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
@@ -1404,8 +1498,11 @@ def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> l
           f"spill-ii: a tier wrote no run ({run['accum_spill_runs']} accumulator, "
           f"{run['dict_spill_runs']} dictionary)")
     runs.append(run)
-    run = drive_job("spill-sort", work, sort_check(ctx["sort_truth"]), app=get_app("sort"),
-                    corpus=ctx["sort_dir"], **{**ZIPF_CFG, "spill_async": False})
+    spill_sort_dir = work / "zipf-sort-48"
+    spill_sort_dir.mkdir()
+    sort_truth = write_zipf_corpus(spill_sort_dir, SPILL_SORT_BYTES, 1)
+    run = drive_job("spill-sort", work, sort_check(sort_truth), app=get_app("sort"),
+                    corpus=spill_sort_dir, **{**ZIPF_CFG, "spill_async": False})
     check(run["dict_spill_runs"] > 0, "spill-sort: the dictionary wrote no run")
     runs.append(run)
     run = drive_job("spill-topk", work, topk_check(ctx["counts01"], 20),
@@ -1479,8 +1576,8 @@ def phase_mesh(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> li
     sharded = drive_job("sharded", work, identical("sharded"), corpus=corpus,
                         mesh_shape=MESH_SHARDS, sharded_stream=True)
     runs.append(sharded)
-    runs.append(drive_job("mesh-ii", work, ii_check(ctx["presence"]),
-                          app=get_app("inverted_index"), corpus=ctx["ii_dir"],
+    runs.append(drive_job("mesh-ii", work, ii_check(ctx["presence"][:, :4]),
+                          app=get_app("inverted_index"), corpus=ctx["left_dir"],
                           mesh_shape=MESH_SHARDS))
     t0 = time.perf_counter()
     cap, maxes = _replay_capacity(ctx["top_dir"], REPLAY_CHUNK)
@@ -2204,6 +2301,7 @@ def main() -> int:
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     try:
+        bench = phase_bench(work)
         corpus = work / "zipf"
         corpus.mkdir()
         t0 = time.perf_counter()
@@ -2275,7 +2373,9 @@ def main() -> int:
                           "counted_in": "each rank's manifest"} for run in mh_runs},
         "service-drain": {"tokenize_hash": drain_run["launches"]["tokenize_hash"],
                           "chunks": 2 * drain_run["chunks_per_job"],
-                          "counted_in": "the workers' manifests"}})
+                          "counted_in": "the workers' manifests"},
+        "bench": {"tokenize_hash": bench["launches"], "chunks": bench["chunks"],
+                  "counted_in": "each bench leg's process"}})
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

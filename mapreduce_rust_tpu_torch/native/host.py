@@ -25,9 +25,12 @@ import platform
 import shutil
 import subprocess
 import threading
+import time
 import weakref
 
 import numpy as np
+
+from mapreduce_rust_tpu_torch.ops.cuda_build import record_build
 
 _SRC = pathlib.Path(__file__).with_name("loader.cpp")
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -64,13 +67,12 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"mrnative-{platform.machine()}-{digest}.so"
 
 
-def _build() -> pathlib.Path:
+def _build() -> tuple[pathlib.Path, float]:
+    """(the library's path, g++'s seconds — 0.0 when a build was reused)."""
     global build_seconds
-    import time
-
     out = library_path()
     if out.exists():
-        return out
+        return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(_SRC)]
@@ -84,7 +86,7 @@ def _build() -> pathlib.Path:
         )
     build_seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: a concurrent process never sees half a file
-    return out
+    return out, build_seconds
 
 
 def get_lib() -> ctypes.CDLL:
@@ -93,7 +95,9 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = _build()
+        t0 = time.perf_counter()
+        path, seconds = _build()
+        t_built = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -124,6 +128,12 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int32), i64p, ctypes.c_int64,
         ]
         _lib, _lib_path = lib, path
+        # The first load in this process is a kernel-build record, as
+        # ops/cuda_build's libraries are: g++'s run, or the reused load.
+        if seconds:
+            record_build("g++", _SRC.name, "miss", t_built - seconds, t_built)
+        else:
+            record_build("g++", _SRC.name, "hit", t0, time.perf_counter())
         return lib
 
 

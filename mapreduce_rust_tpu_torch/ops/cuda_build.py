@@ -6,6 +6,14 @@ with a plain C interface, at first use, into ``ops/_build/`` (listed in
 flags, so an edited source rebuilds and a built one is reused by every
 process that finds it. Nothing here runs at import time, and nothing falls
 back: a missing toolkit or a failed compile raises.
+
+Each library a process loads for the first time adds one record to
+:data:`BUILD_LOG` (the native host library's g++ build adds its own):
+``{"dur_s", "cache", "tool", "source", "t0", "t1"}``, where ``cache`` is
+``"miss"`` for a fresh build (``dur_s`` the compiler's seconds) and
+``"hit"`` for a library found in the build directory (``dur_s`` the
+seconds of its load). A later load in the same process adds nothing.
+``run_job`` folds the records into ``JobStats.compile_*``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,22 @@ class Build:
     path: pathlib.Path
     seconds: float      # 0.0 when an existing build was reused
     log: str            # nvcc's and ptxas's report (registers, spills)
+
+
+#: Every first load of a kernel library in this process, in order. Only
+#: appended to, so a reader slices the records made since a mark.
+BUILD_LOG: list[dict] = []
+_log_lock = threading.Lock()
+_load_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}  # source → its library, loaded once
+
+
+def record_build(tool: str, source: str, cache: str, t0: float, t1: float) -> None:
+    """Append one record to :data:`BUILD_LOG`; ``t0``/``t1`` are
+    ``time.perf_counter()`` readings around the build or the load."""
+    with _log_lock:
+        BUILD_LOG.append({"dur_s": t1 - t0, "cache": cache, "tool": tool,
+                          "source": source, "t0": t0, "t1": t1})
 
 
 def nvcc() -> str:
@@ -88,5 +112,17 @@ def build_all(sources: list[str]) -> list[Build]:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """The library of ``csrc/<source>``, built first if needed."""
-    return ctypes.CDLL(str(build(source).path))
+    """The library of ``csrc/<source>``, built first if needed. The first
+    load in this process records the build (a miss) or the load (a hit)."""
+    with _load_lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            t0 = time.perf_counter()
+            b = build(source)
+            t_built = time.perf_counter()
+            lib = _loaded[source] = ctypes.CDLL(str(b.path))
+            if b.seconds:  # a fresh build: the record is nvcc's run
+                record_build("nvcc", source, "miss", t_built - b.seconds, t_built)
+            else:
+                record_build("nvcc", source, "hit", t0, time.perf_counter())
+        return lib

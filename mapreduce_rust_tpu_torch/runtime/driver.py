@@ -97,6 +97,7 @@ from mapreduce_rust_tpu_torch.native.host import (
     scan_count_sharded_raw,
     scan_unique_raw,
 )
+from mapreduce_rust_tpu_torch.ops.cuda_build import BUILD_LOG
 from mapreduce_rust_tpu_torch.ops.groupby import (
     clamp_batch,
     compact_front,
@@ -142,6 +143,16 @@ from mapreduce_rust_tpu_torch.runtime.trace import (
     trace_counter,
     trace_span,
 )
+
+
+#: Synthetic trace track of the kernel-build spans (ops/cuda_build
+#: BUILD_LOG): their intervals were timed around nvcc, g++ or a library
+#: load, maybe on another thread, so on a track of their own they never
+#: partially overlap a thread's call-structured spans.
+_BUILD_TRACK_TID = -2
+#: How much of BUILD_LOG run manifests and traces already hold: each
+#: record lands in the first one written after it (see run_job).
+_build_log_flushed = [0]
 
 
 def select_device(kind: str = "cuda") -> torch.device:
@@ -810,6 +821,102 @@ def make_packed_merge_fn(app: App, cap: int):
         return new_state, evicted, evicted.valid.sum(dtype=torch.int32)
 
     return merge_packed
+
+
+#: aten ops (overload packets, in-place "_" dropped) that count one
+#: operation per element they produce.
+_ELEMENTWISE_OPS = frozenset({
+    "add", "sub", "mul", "div", "neg", "abs", "where", "clamp", "clamp_min",
+    "clamp_max", "maximum", "minimum", "eq", "ne", "lt", "le", "gt", "ge",
+    "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not", "logical_and",
+    "logical_or", "logical_not", "bitwise_left_shift", "bitwise_right_shift",
+    "__and__", "__or__", "__xor__", "__lshift__", "__rshift__", "cumsum",
+})
+#: aten ops that combine their input elements: one operation per element
+#: of the first tensor argument (reductions) or of the source (scatters).
+_REDUCTION_OPS = frozenset({"sum", "any", "all", "amax", "amin", "max", "min"})
+_SCATTER_REDUCE_OPS = {"index_add": 3, "scatter_add": 3, "scatter_reduce": 3}
+_merge_costs: dict = {}
+
+
+def _count_merge_ops(app: App, cap: int, n: int, device: str) -> dict:
+    """{"flops", "bytes_accessed"} of one packed-merge dispatch: every
+    aten op that ``make_packed_merge_fn(app, cap)`` runs on a state of
+    ``n`` records and a flat update of ``1 + 3·cap`` words, seen through a
+    ``TorchDispatchMode`` on ``device``.
+
+    - ``bytes_accessed``: each op's input tensors' bytes plus its output
+      tensors' bytes; views (slices, aliases) move nothing and count 0;
+    - ``flops``: one per output element of each elementwise arithmetic or
+      compare op (``_ELEMENTWISE_OPS``); one per input element of each
+      reduction and per source element of each accumulating scatter
+      (``index_add_``); ``n·⌈log2 n⌉`` for each sort of n rows and
+      ``m·⌈log2(n + 1)⌉`` for each binary search of m queries over n rows.
+      Moves (gathers, plain scatters, fills, copies) count 0.
+
+    Both depend only on the shapes and the merge's ops, never on the data,
+    the device or the clock."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    def log2_ceil(x: int) -> int:
+        return max(int(x) - 1, 0).bit_length()
+
+    class Counter(TorchDispatchMode):
+        flops = 0
+        bytes_accessed = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.is_view:
+                return out
+            self.bytes_accessed += nbytes((args, kwargs)) + nbytes(out)
+            name = func.overloadpacket.__name__
+            if name.endswith("_") and not name.endswith("__"):
+                name = name[:-1]  # in place: index_add_ → index_add
+            first = args[0] if args and isinstance(args[0], torch.Tensor) else None
+            if name in _ELEMENTWISE_OPS:
+                self.flops += sum(t.numel() for t in tree_leaves(out)
+                                  if isinstance(t, torch.Tensor))
+            elif name in _REDUCTION_OPS and first is not None:
+                self.flops += first.numel()
+            elif name in _SCATTER_REDUCE_OPS:
+                self.flops += args[_SCATTER_REDUCE_OPS[name]].numel()
+            elif name == "sort" and first is not None:
+                rows = first.shape[-1] if first.dim() else 1
+                self.flops += first.numel() * log2_ceil(rows)
+            elif name == "searchsorted" and first is not None:
+                self.flops += args[1].numel() * log2_ceil(first.shape[-1] + 1)
+            return out
+
+    state = KVBatch(*(torch.zeros(n, dtype=dt, device=device)
+                      for dt in (torch.int32, torch.int32, torch.int32, torch.bool)))
+    flat = torch.zeros(1 + 3 * cap, dtype=torch.int32, device=device)
+    merge = make_packed_merge_fn(app, cap)
+    with Counter() as c:
+        merge(state, flat)
+    return {"flops": float(c.flops), "bytes_accessed": float(c.bytes_accessed)}
+
+
+def _merge_cost_analysis(app: App, cfg: Config) -> dict:
+    """Flops and bytes accessed PER DISPATCH of the packed merge at the
+    shapes the run used (state of ``merge_capacity``, flat of
+    ``1 + 3·host_update_cap``): the roofline's device-merge intensity.
+    Counted by :func:`_count_merge_ops` on the meta device (no memory, no
+    card), or on the CPU where an op has no meta kernel; never on the card.
+    Cached per (combine op, cap, merge_capacity)."""
+    key = (app.combine_op, cfg.host_update_cap, cfg.merge_capacity)
+    if key not in _merge_costs:
+        try:
+            cost = _count_merge_ops(app, *key[1:], device="meta")
+        except NotImplementedError:
+            cost = _count_merge_ops(app, *key[1:], device="cpu")
+        _merge_costs[key] = cost
+    return dict(_merge_costs[key])
 
 
 def _pack_update(keys: np.ndarray, values: np.ndarray, cap: int) -> np.ndarray:
@@ -1519,7 +1626,8 @@ def _py_scan_count(window: bytes):
 
 
 def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
-                     acc: HostAccumulator, dictionary, device: torch.device) -> None:
+                     acc: HostAccumulator, dictionary, device: torch.device,
+                     doc_id_offset: int = 0) -> None:
     """The host-map engine: one fused native pass per window normalizes,
     tokenizes, dedupes, hashes and counts on the host — the very scan that
     feeds the egress dictionary — and the device merges the compacted
@@ -1537,7 +1645,9 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
     hands shard s its slice, and S fold threads (each the sole owner of
     one shard) fold in window order. The device merge stream is scattered
     back to exact scan order by the dispatch plane, so merges, evictions
-    and outputs are identical for every (workers, shards) pair."""
+    and outputs are identical for every (workers, shards) pair.
+
+    doc_id = position in inputs + ``doc_id_offset``, as in _stream_single."""
     workers = cfg.effective_host_map_workers()
     stats.host_map_workers = workers
     fold_n = dictionary.n_shards if isinstance(dictionary, ShardedDictionary) else 1
@@ -1580,6 +1690,7 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
 
     def consume(result) -> None:
         doc_id, kind, res, lin, scan_s = result
+        doc_id += doc_id_offset
         stats.host_map_s += scan_s  # summed over workers
         stats.record_hist("host_map.scan_s", scan_s)
         t_glue = time.perf_counter()
@@ -2371,6 +2482,7 @@ def run_job(
     output files: ``JobResult.table`` is then empty. The run files are
     removed when the job ends, whether it succeeds or raises."""
     t0 = time.perf_counter()
+    build_log_start = len(BUILD_LOG)
     device = select_device(cfg.device)
     app = app or WordCount()
     if inputs is None:
@@ -2538,6 +2650,8 @@ def run_job(
         # written too, and a 0.0 s crashed run would corrupt comparisons.
         if not stats.wall_seconds:
             stats.wall_seconds = time.perf_counter() - t0
+        _fold_builds(stats, tracer, build_log_start,
+                     artifacts=tracer is not None or bool(cfg.manifest_path))
         # Run files are job-scoped scratch: their counts survive in the
         # stats as the proof the disk tiers engaged. remove_runs joins
         # every writer, so the collection below reads final counters.
@@ -2574,6 +2688,13 @@ def run_job(
 
             exc = _sys.exc_info()[1]
             extra = {"error": repr(exc)} if exc is not None else {}
+            if stats.merge_dispatches:
+                # Per-dispatch merge cost for the roofline's device-merge
+                # row; telemetry stays best-effort.
+                try:
+                    extra["merge_cost"] = _merge_cost_analysis(app, cfg)
+                except Exception:
+                    log.warning("merge cost analysis failed", exc_info=True)
             if device.type == "cuda":
                 # The scan kernel's launches in this process: the evidence
                 # that the job's map ran on the card (a worker's manifest
@@ -2607,6 +2728,34 @@ def run_job(
 
             stop_ledger(ledger)
     return JobResult(stats=stats, table=table, output_files=output_files)
+
+
+def _fold_builds(stats: JobStats, tracer, start: int, artifacts: bool) -> None:
+    """Fold kernel-build records (ops/cuda_build.BUILD_LOG) into the stats:
+    count, seconds, the hit/miss split and the ``kernel.build_s``
+    histogram, which the manifest writes as its "compile" block. A job
+    takes the records made since ``start``, its own start; one that writes
+    a manifest or trace (``artifacts``) also takes those that no earlier
+    manifest or trace holds, so a warm-up job without telemetry does not
+    keep its builds from the run it warms up. The records made during a
+    traced job become ``kernel.build`` spans on a track of their own."""
+    first = min(start, _build_log_flushed[0]) if artifacts else start
+    records = BUILD_LOG[first:]
+    for i, rec in enumerate(records, first):
+        stats.compile_count += 1
+        stats.compile_s += rec["dur_s"]
+        if rec["cache"] == "hit":
+            stats.compile_cache_hits += 1
+        else:
+            stats.compile_cache_misses += 1
+        stats.record_hist("kernel.build_s", rec["dur_s"])
+        if tracer is not None and i >= start:
+            tracer.add_span("kernel.build", rec["t0"], rec["t1"],
+                            {"tool": rec["tool"], "source": rec["source"],
+                             "cache": rec["cache"], "seconds": round(rec["dur_s"], 3)},
+                            tid=_BUILD_TRACK_TID)
+    if artifacts:
+        _build_log_flushed[0] = first + len(records)
 
 
 def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,

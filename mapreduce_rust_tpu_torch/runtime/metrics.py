@@ -87,7 +87,10 @@ class JobStats:
                                   # (0 = in-RAM egress)
     host_arena_bytes: int = 0     # live native scan arenas at stream end
     all_to_all_s: float = 0.0     # mesh all_to_all seconds (0 on one device)
-    # Compile listener (not ported: the kernels build once through nvcc).
+    # Kernel builds: one per library this process loaded for the first time
+    # (ops/cuda_build.BUILD_LOG: nvcc and g++ builds are misses, loads of a
+    # library already built hits), as runtime/driver._fold_builds assigns
+    # them to jobs.
     compile_count: int = 0
     compile_s: float = 0.0
     compile_cache_hits: int = 0

@@ -180,6 +180,8 @@ def test_chunk_stream_matches_reference(corpus, window):
 
 _GATE = """
 import sys
+import __graft_entry_torch__
+import bench_torch
 import mapreduce_rust_tpu_torch.__main__
 import mapreduce_rust_tpu_torch.apps.grep
 import mapreduce_rust_tpu_torch.apps.inverted_index
@@ -303,6 +305,9 @@ local, totals = make_mh_shuffle_step_fns(get_app("word_count"), 64, 64, mesh)[0]
 assert totals.tolist() == [1, 0, 0] and sum(int(x.valid.sum()) for x in local) == 2
 distributed.shutdown()
 assert run_check(sys.argv[2] + "/cw")["ok"]
+fn, args = __graft_entry_torch__.entry("cpu")
+assert int(fn(*args)[0].valid.sum()) == 8
+assert bench_torch._zipf_cfg("w", "o", 8).map_engine == "device"
 assert run_model(focus="lease", budget=20, depth=6)["ok"]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mapreduce_rust_tpu" or m.startswith("mapreduce_rust_tpu."))

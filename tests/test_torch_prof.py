@@ -187,9 +187,9 @@ def machine(tmp_path_factory):
 
 
 def synthetic_manifest(host_manifest: pathlib.Path, tmp: pathlib.Path) -> pathlib.Path:
-    """The host manifest plus the blocks the port's driver does not write
-    (a merge cost, an interconnect split and a spill split), so every row
-    of the report is exercised."""
+    """The host manifest plus blocks its run did not write (an
+    interconnect split and a spill split) and a merge cost of round
+    numbers, so every row of the report is exercised."""
     m = json.loads(host_manifest.read_text())
     m["merge_cost"] = {"flops": 2.5e6, "bytes_accessed": 3.0e6}
     m["stats"]["ici_split"] = {"wire_bytes": 5 << 20, "all_to_all_s": 0.01, "rounds": 3}
