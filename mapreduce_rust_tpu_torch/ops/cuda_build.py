@@ -12,8 +12,9 @@ Each library a process loads for the first time adds one record to
 ``{"dur_s", "cache", "tool", "source", "t0", "t1"}``, where ``cache`` is
 ``"miss"`` for a fresh build (``dur_s`` the compiler's seconds) and
 ``"hit"`` for a library found in the build directory (``dur_s`` the
-seconds of its load). A later load in the same process adds nothing.
-``run_job`` folds the records into ``JobStats.compile_*``.
+seconds of its load). The caller loads each library once per process, so
+a later use adds nothing. ``run_job`` folds the records made during it
+into ``JobStats.compile_*``.
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ class Build:
 #: appended to, so a reader slices the records made since a mark.
 BUILD_LOG: list[dict] = []
 _log_lock = threading.Lock()
-_load_lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}  # source → its library, loaded once
 
 
 def record_build(tool: str, source: str, cache: str, t0: float, t1: float) -> None:
@@ -112,17 +111,15 @@ def build_all(sources: list[str]) -> list[Build]:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """The library of ``csrc/<source>``, built first if needed. The first
-    load in this process records the build (a miss) or the load (a hit)."""
-    with _load_lock:
-        lib = _loaded.get(source)
-        if lib is None:
-            t0 = time.perf_counter()
-            b = build(source)
-            t_built = time.perf_counter()
-            lib = _loaded[source] = ctypes.CDLL(str(b.path))
-            if b.seconds:  # a fresh build: the record is nvcc's run
-                record_build("nvcc", source, "miss", t_built - b.seconds, t_built)
-            else:
-                record_build("nvcc", source, "hit", t0, time.perf_counter())
-        return lib
+    """The library of ``csrc/<source>``, built first if needed, with one
+    record of the build (a miss) or of the load (a hit). The caller loads
+    it once per process."""
+    t0 = time.perf_counter()
+    b = build(source)
+    t_built = time.perf_counter()
+    lib = ctypes.CDLL(str(b.path))
+    if b.seconds:  # a fresh build: the record is nvcc's run
+        record_build("nvcc", source, "miss", t_built - b.seconds, t_built)
+    else:
+        record_build("nvcc", source, "hit", t0, time.perf_counter())
+    return lib

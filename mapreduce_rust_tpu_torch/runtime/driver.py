@@ -150,9 +150,6 @@ from mapreduce_rust_tpu_torch.runtime.trace import (
 #: load, maybe on another thread, so on a track of their own they never
 #: partially overlap a thread's call-structured spans.
 _BUILD_TRACK_TID = -2
-#: How much of BUILD_LOG run manifests and traces already hold: each
-#: record lands in the first one written after it (see run_job).
-_build_log_flushed = [0]
 
 
 def select_device(kind: str = "cuda") -> torch.device:
@@ -1626,8 +1623,7 @@ def _py_scan_count(window: bytes):
 
 
 def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
-                     acc: HostAccumulator, dictionary, device: torch.device,
-                     doc_id_offset: int = 0) -> None:
+                     acc: HostAccumulator, dictionary, device: torch.device) -> None:
     """The host-map engine: one fused native pass per window normalizes,
     tokenizes, dedupes, hashes and counts on the host — the very scan that
     feeds the egress dictionary — and the device merges the compacted
@@ -1645,9 +1641,7 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
     hands shard s its slice, and S fold threads (each the sole owner of
     one shard) fold in window order. The device merge stream is scattered
     back to exact scan order by the dispatch plane, so merges, evictions
-    and outputs are identical for every (workers, shards) pair.
-
-    doc_id = position in inputs + ``doc_id_offset``, as in _stream_single."""
+    and outputs are identical for every (workers, shards) pair."""
     workers = cfg.effective_host_map_workers()
     stats.host_map_workers = workers
     fold_n = dictionary.n_shards if isinstance(dictionary, ShardedDictionary) else 1
@@ -1690,7 +1684,6 @@ def _stream_host_map(cfg: Config, app: App, inputs, stats: JobStats,
 
     def consume(result) -> None:
         doc_id, kind, res, lin, scan_s = result
-        doc_id += doc_id_offset
         stats.host_map_s += scan_s  # summed over workers
         stats.record_hist("host_map.scan_s", scan_s)
         t_glue = time.perf_counter()
@@ -2650,8 +2643,7 @@ def run_job(
         # written too, and a 0.0 s crashed run would corrupt comparisons.
         if not stats.wall_seconds:
             stats.wall_seconds = time.perf_counter() - t0
-        _fold_builds(stats, tracer, build_log_start,
-                     artifacts=tracer is not None or bool(cfg.manifest_path))
+        _fold_builds(stats, tracer, build_log_start)
         # Run files are job-scoped scratch: their counts survive in the
         # stats as the proof the disk tiers engaged. remove_runs joins
         # every writer, so the collection below reads final counters.
@@ -2730,18 +2722,13 @@ def run_job(
     return JobResult(stats=stats, table=table, output_files=output_files)
 
 
-def _fold_builds(stats: JobStats, tracer, start: int, artifacts: bool) -> None:
-    """Fold kernel-build records (ops/cuda_build.BUILD_LOG) into the stats:
-    count, seconds, the hit/miss split and the ``kernel.build_s``
-    histogram, which the manifest writes as its "compile" block. A job
-    takes the records made since ``start``, its own start; one that writes
-    a manifest or trace (``artifacts``) also takes those that no earlier
-    manifest or trace holds, so a warm-up job without telemetry does not
-    keep its builds from the run it warms up. The records made during a
-    traced job become ``kernel.build`` spans on a track of their own."""
-    first = min(start, _build_log_flushed[0]) if artifacts else start
-    records = BUILD_LOG[first:]
-    for i, rec in enumerate(records, first):
+def _fold_builds(stats: JobStats, tracer, start: int) -> None:
+    """Fold the kernel-build records made since ``start``, the job's own
+    start (ops/cuda_build.BUILD_LOG), into the stats: count, seconds, the
+    hit/miss split and the ``kernel.build_s`` histogram, which the
+    manifest writes as its "compile" block. Under a tracer each record
+    becomes a ``kernel.build`` span on a track of its own."""
+    for rec in BUILD_LOG[start:]:
         stats.compile_count += 1
         stats.compile_s += rec["dur_s"]
         if rec["cache"] == "hit":
@@ -2749,13 +2736,11 @@ def _fold_builds(stats: JobStats, tracer, start: int, artifacts: bool) -> None:
         else:
             stats.compile_cache_misses += 1
         stats.record_hist("kernel.build_s", rec["dur_s"])
-        if tracer is not None and i >= start:
+        if tracer is not None:
             tracer.add_span("kernel.build", rec["t0"], rec["t1"],
                             {"tool": rec["tool"], "source": rec["source"],
                              "cache": rec["cache"], "seconds": round(rec["dur_s"], 3)},
                             tid=_BUILD_TRACK_TID)
-    if artifacts:
-        _build_log_flushed[0] = first + len(records)
 
 
 def _ram_finalize(cfg: Config, app: App, stats: JobStats, acc: HostAccumulator,

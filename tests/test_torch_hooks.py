@@ -16,7 +16,7 @@ from mapreduce_rust_tpu_torch.analysis import roofline
 from mapreduce_rust_tpu_torch.apps import get_app
 from mapreduce_rust_tpu_torch.config import Config
 from mapreduce_rust_tpu_torch.native import host as native_host
-from mapreduce_rust_tpu_torch.ops import cuda_build
+from mapreduce_rust_tpu_torch.ops import cuda_build, tokenize_cuda
 from mapreduce_rust_tpu_torch.runtime import driver
 from mapreduce_rust_tpu_torch.runtime.driver import run_job
 
@@ -44,15 +44,14 @@ def build_log(monkeypatch):
     log: list = []
     monkeypatch.setattr(cuda_build, "BUILD_LOG", log)
     monkeypatch.setattr(driver, "BUILD_LOG", log)
-    monkeypatch.setattr(driver, "_build_log_flushed", [0])
     return log
 
 
 def test_jobs_fold_build_records(corpus, tmp_path, build_log, monkeypatch):
-    """A warm-up job without telemetry counts the builds made during it and
-    leaves them to the next job that writes a manifest; that job's compile
-    block holds them with the right seconds and split, its own builds
-    become spans on their own track, and a later manifest holds none."""
+    """Each job counts the builds made during it and no others: the
+    warm-up's count, seconds and split are its own, the next job's compile
+    block holds only its build, as a span on the build track, and a job
+    with no build writes no compile block."""
     select = driver.select_device
     builds: list = []
 
@@ -75,9 +74,9 @@ def test_jobs_fold_build_records(corpus, tmp_path, build_log, monkeypatch):
                 manifest_path=str(manifest)))
     m = json.loads(manifest.read_text())
     comp = m["stats"]["compile"]
-    assert (comp["count"], comp["cache_hits"], comp["cache_misses"]) == (3, 2, 1)
-    assert comp["total_s"] == pytest.approx(1.875)
-    assert m["stats"]["histograms"]["kernel.build_s"]["count"] == 3
+    assert (comp["count"], comp["cache_hits"], comp["cache_misses"]) == (1, 1, 0)
+    assert comp["total_s"] == pytest.approx(0.125)
+    assert m["stats"]["histograms"]["kernel.build_s"]["count"] == 1
     events = json.loads(trace.read_text())
     events = events["traceEvents"] if isinstance(events, dict) else events
     spans = [e for e in events if e.get("name") == "kernel.build"]
@@ -92,23 +91,34 @@ def test_jobs_fold_build_records(corpus, tmp_path, build_log, monkeypatch):
 
 def test_load_library_records_a_hit_once(tmp_path, build_log, monkeypatch):
     """A library already in the build directory loads as a hit, with the
-    seconds of its load; a second load in the process adds no record."""
+    seconds of its load; the kernel's loader loads it once per process, so
+    a second use adds no record."""
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path / "csrc")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(tokenize_cuda, "SOURCE", "stub.cu")
     (tmp_path / "csrc").mkdir()
-    (tmp_path / "csrc" / "seven.cu").write_text('extern "C" int mr_seven() { return 7; }\n')
-    lib_path = cuda_build.library_path("seven.cu")
+    # The scan library's C interface, stubbed: the loader checks the tile.
+    (tmp_path / "csrc" / "stub.cu").write_text(
+        'extern "C" {\n'
+        "int mr_hash_scan() { return 0; }\nint mr_tokenize_hash() { return 0; }\n"
+        "long long mr_hash_scan_scratch_bytes(long long) { return 0; }\n"
+        f"long long mr_hash_scan_tile_bytes() {{ return {tokenize_cuda.TILE_BYTES}; }}\n"
+        "}\n")
+    lib_path = cuda_build.library_path("stub.cu")
     lib_path.parent.mkdir()
     subprocess.run([shutil.which("g++"), "-shared", "-fPIC", "-x", "c++", "-o",
-                    str(lib_path), str(tmp_path / "csrc" / "seven.cu")], check=True)
-    lib = cuda_build.load_library("seven.cu")
-    assert lib.mr_seven() == 7
-    assert len(build_log) == 1
-    rec = build_log[0]
-    assert (rec["tool"], rec["source"], rec["cache"]) == ("nvcc", "seven.cu", "hit")
-    assert rec["dur_s"] == rec["t1"] - rec["t0"] >= 0
-    assert cuda_build.load_library("seven.cu") is lib and len(build_log) == 1
+                    str(lib_path), str(tmp_path / "csrc" / "stub.cu")], check=True)
+    tokenize_cuda._load_lib.cache_clear()
+    try:
+        lib = tokenize_cuda._lib()
+        assert lib.mr_hash_scan_tile_bytes() == tokenize_cuda.TILE_BYTES
+        assert len(build_log) == 1
+        rec = build_log[0]
+        assert (rec["tool"], rec["source"], rec["cache"]) == ("nvcc", "stub.cu", "hit")
+        assert rec["dur_s"] == rec["t1"] - rec["t0"] >= 0
+        assert tokenize_cuda._lib() is lib and len(build_log) == 1
+    finally:
+        tokenize_cuda._load_lib.cache_clear()
 
 
 @pytest.fixture(scope="module")

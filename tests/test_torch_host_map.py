@@ -11,9 +11,6 @@ config. Among port runs, outputs and counters are equal across
 (host_map_workers, fold_shards) ∈ {1, 2, 4}² and across the four dispatch
 modes.
 
-A third case runs inverted_index through ``_stream_host_map`` with a doc
-id offset in both packages.
-
 The reference runs with its plain packer ``_pack_update`` in place of its
 ``_PackStager``: on the CPU, ``jax.device_put`` may alias the stager's
 reused buffer, which the next pack then overwrites under a merge still in
@@ -21,7 +18,6 @@ flight, so the reference's own stager gives wrong counts on this machine
 (seen on two cores in most runs). The port's stager copies on the CPU.
 """
 
-import functools
 import pathlib
 import threading
 
@@ -29,11 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from mapreduce_rust_tpu.apps import InvertedIndex as JaxInvertedIndex
 from mapreduce_rust_tpu.config import Config as JaxConfig
 from mapreduce_rust_tpu.runtime import driver as jax_driver
 from mapreduce_rust_tpu_torch.__main__ import main as cli_main
-from mapreduce_rust_tpu_torch.apps import get_app
 from mapreduce_rust_tpu_torch.config import Config
 from mapreduce_rust_tpu_torch.core.normalize import reference_word_counts
 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import hash_scan, tokenize_hash
@@ -54,10 +48,6 @@ CONFIGS = {
 }
 COUNTERS = ("distinct_keys", "spilled_keys", "spill_events", "merge_dispatches",
             "merge_fill_frac")
-#: A parity case beside CONFIGS: inverted_index under "coalesce" with
-#: ``_stream_host_map(..., doc_id_offset=3)`` in both packages (a worker's
-#: map task passes its task id there), so its postings name docs 3, 4, 5.
-OFFSET_CASE = "inverted_index+offset3"
 
 
 def _text(seed: int, n_words: int, vocab_size: int) -> bytes:
@@ -113,15 +103,10 @@ def reference(corpus, tmp_path_factory):
             out = tmp_path_factory.mktemp(f"ref-host-{name}")
             cfg = JaxConfig(input_dir=str(corpus), output_dir=str(out / "out"),
                             work_dir=str(out / "work"), host_map_workers=2,
-                            fold_shards=2, **BASE, **CONFIGS.get(name, CONFIGS["coalesce"]))
+                            fold_shards=2, **BASE, **CONFIGS[name])
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(jax_driver._PackStager, "pack", plain_pack)
-                if name == OFFSET_CASE:
-                    mp.setattr(jax_driver, "_stream_host_map", functools.partial(
-                        jax_driver._stream_host_map, doc_id_offset=3))
-                    cache[name] = jax_driver.run_job(cfg, app=JaxInvertedIndex())
-                else:
-                    cache[name] = jax_driver.run_job(cfg)
+                cache[name] = jax_driver.run_job(cfg)
         return cache[name]
 
     return get
@@ -172,27 +157,15 @@ def assert_same_run(got, want, counters=COUNTERS):
         assert getattr(got.stats, field) == getattr(want.stats, field), field
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS) + [OFFSET_CASE])
-def test_matches_reference(corpus, oracle, reference, tmp_path, monkeypatch, name):
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_matches_reference(corpus, oracle, reference, tmp_path, name):
     ref = reference(name)
     before = hash_scan.launches, tokenize_hash.launches
-    if name == OFFSET_CASE:
-        monkeypatch.setattr(driver, "_stream_host_map", functools.partial(
-            driver._stream_host_map, doc_id_offset=3))
-        res = run_job(Config(input_dir=str(corpus), output_dir=str(tmp_path / "out"),
-                             work_dir=str(tmp_path / "work"), host_map_workers=2,
-                             fold_shards=2, **BASE, **CONFIGS["coalesce"]),
-                      app=get_app("inverted_index"))
-        docs = {d for part in file_bytes(res) for line in part.splitlines()
-                for d in line.rsplit(b" ", 1)[1].split(b",")}
-        assert docs == {b"3", b"4", b"5"}
-    else:
-        res = port_run(corpus, tmp_path, name, host_map_workers=2, fold_shards=2)
-        assert short(res.table) == oracle
+    res = port_run(corpus, tmp_path, name, host_map_workers=2, fold_shards=2)
     assert (hash_scan.launches, tokenize_hash.launches) == before  # no scan kernel
     assert_same_run(res, ref)
     s = res.stats
-    assert res.table == ref.table
+    assert res.table == ref.table and short(res.table) == oracle
     assert s.unknown_keys == 0 and s.hash_collisions == 0
     assert s.forced_cuts == ref.stats.forced_cuts > 0
     assert s.chunks == ref.stats.chunks and s.bytes_in == ref.stats.bytes_in
