@@ -46,11 +46,27 @@ Where it differs from ``bench.py``:
   the Rust original's ``gut-*.txt`` where that data directory exists, and
   in this repo, which does not hold it, from the same synthetic seed.
 
-Also: ``--sort-leg`` (global sort over the Zipf corpus, exact and ordered)
-and ``--zipf-ii MB`` (inverted index over an 8-document Zipf corpus, exact
-against the presence matrix), each printing its own JSON line.
-``bench.py``'s other modes (the service leg, chaos, the sweeps, the
-dispatch A/B, the model leg) are not ported yet.
+Also ``bench.py``'s other modes, each printing its own JSON line with
+``bench.py``'s keys and exit codes and appending its history rows:
+``--sort-leg`` (global sort over the Zipf corpus, exact and ordered),
+``--zipf-ii MB`` (inverted index over an 8-document Zipf corpus, exact
+against the presence matrix), ``--model-leg`` (the control-plane model
+checker's schedules per second; torch-free, in this process), the four
+sweeps ``--sweep-host-workers``, ``--sweep-fold-shards``,
+``--sweep-spill-budget`` and ``--sweep-dispatch-fill``, ``--dispatch-ab``,
+``--chaos`` (the seeded fault matrix over a coordinator and two workers,
+then the slow-disk and slow-dispatch pairs) and ``--service-leg`` /
+``--sched-ab`` (the job service and two workers). A mode that needs the
+card checks for it before it starts a process, and without one prints its
+line with no number and an ``error``, and exits 1.
+
+Engines: the host-worker, fold-shard and dispatch-fill sweeps and
+``--dispatch-ab`` vary knobs that exist only on the host engine, so their
+legs run ``BENCH_MAP_ENGINE=host`` (the card still runs every packed
+merge); the spill-budget sweep keeps the caller's engine. The chaos and
+service workers run the device engine on the card unless
+``BENCH_MAP_ENGINE=host`` names the host engine; the slow pairs run the
+host engine, whose dispatches and spill writes the seeded delays target.
 """
 
 from __future__ import annotations
@@ -553,6 +569,45 @@ def sort_leg_main() -> None:
         raise SystemExit(1)
 
 
+def model_leg() -> None:
+    """``bench_torch.py --model-leg``: the control-plane model checker's
+    exploration throughput — the lease and pipeline foci at a fixed
+    budget, depth and seed, in this process (``analysis/mrmodel.py`` is
+    torch-free, so the platform is the CPU). Appends one history row with
+    model_schedules_per_s and explored/pruned. Prints ONE JSON line; exit
+    1 when a focus finds a counterexample."""
+    from mapreduce_rust_tpu_torch.analysis.mrmodel import run_model
+
+    budget = int(os.environ.get("BENCH_MODEL_BUDGET", "1500"))
+    depth = int(os.environ.get("BENCH_MODEL_DEPTH", "12"))
+    docs = {f: run_model(focus=f, budget=budget, depth=depth, seed=0)
+            for f in ("lease", "pipeline")}
+    explored = sum(d["explored"] for d in docs.values())
+    elapsed = sum(d["elapsed_s"] for d in docs.values())
+    ok = all(d["ok"] for d in docs.values())
+    result: dict = {
+        "metric": f"mrmodel exploration, lease+pipeline foci at "
+                  f"budget {budget} depth {depth}",
+        "unit": "schedules/s",
+        "value": None,  # the GB/s trend series must never mix in these
+        "platform": "cpu",
+        "model_schedules_per_s": (round(explored / elapsed, 1)
+                                  if elapsed > 0 else None),
+        "model_explored": explored,
+        "model_pruned": sum(d["pruned"] for d in docs.values()),
+        "model_steps": sum(d["steps"] for d in docs.values()),
+        "model_ok": ok,
+        "model_counterexamples": [
+            {"focus": f, "code": c["code"], "chaos_spec": c["chaos_spec"]}
+            for f, d in docs.items() for c in d["counterexamples"]
+        ],
+    }
+    _append_history(result)
+    print(json.dumps(result))
+    if not ok:
+        raise SystemExit(1)
+
+
 def _timer(platform: str):
     """timed(n, fn) → ms per fn() call over n calls, ended by a wait for
     the device: CUDA events around the calls on the card (after a
@@ -918,7 +973,7 @@ def device_leg(path: str) -> None:
     platform, device_name = _leg_device()
 
     from mapreduce_rust_tpu_torch.config import Config
-    from mapreduce_rust_tpu_torch.ops.cuda_build import BUILD_LOG
+    from mapreduce_rust_tpu_torch.ops.cuda_build import BUILD_LOG, build_totals
     from mapreduce_rust_tpu_torch.ops.tokenize_cuda import tokenize_hash
     from mapreduce_rust_tpu_torch.runtime.driver import run_job
     from mapreduce_rust_tpu_torch.runtime.telemetry import stats_to_dict
@@ -979,12 +1034,7 @@ def device_leg(path: str) -> None:
         "device_name": device_name,
         # Every kernel build or load of the leg's process (the warm-up's),
         # outside the measured run's wall.
-        "kernel_builds": {
-            "count": len(builds),
-            "total_s": round(sum(b["dur_s"] for b in builds), 6),
-            "cache_hits": sum(b["cache"] == "hit" for b in builds),
-            "cache_misses": sum(b["cache"] == "miss" for b in builds),
-        },
+        "kernel_builds": build_totals(builds),
     }
     # The FULL JobStats rides back so the bench manifest carries every
     # counter, not the info subset.
@@ -1145,6 +1195,1111 @@ def _load_leg_manifest(path, t_start: float, pid: int):
     except (OSError, ValueError):
         pass
     return None
+
+
+def _need_card() -> None:
+    """Raise unless the legs can run where BENCH_DEVICE asks: the card, or
+    the CPU only when it is named. Every mode that needs the card calls it
+    before it starts a process, so without one it starts none."""
+    if DEVICE == "cpu":
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: this mode runs on the card "
+                           "(BENCH_DEVICE=cpu runs it on the CPU)")
+
+
+def _build_libraries() -> None:
+    """Build, or find built, every library a worker loads (the native host
+    library, and the CUDA kernels unless the legs run on the CPU), so that
+    no worker builds under a lease and each worker's kernel_builds holds
+    hits only."""
+    from mapreduce_rust_tpu_torch.native.host import get_lib
+
+    get_lib()
+    if DEVICE != "cpu":
+        from mapreduce_rust_tpu_torch.ops.cuda_build import CSRC_DIR, build_all
+
+        build_all(sorted(p.name for p in CSRC_DIR.glob("*.cu")))
+
+
+def _leg_platform(engine: str) -> str:
+    """Where a fleet's map tasks ran: the card for device-engine workers
+    unless the legs run on the CPU by name; host-engine workers map on
+    the host's cores."""
+    return "cuda" if engine == "device" and DEVICE != "cpu" else "cpu"
+
+
+def _parse_sweep_counts(spec: str, flag: str, typ=int) -> list:
+    """Comma-separated sweep points. ``typ=float`` for fraction sweeps
+    (--sweep-dispatch-fill) — those must land in (0, 1]; integer sweeps
+    stay >= 1."""
+    counts = []
+    for tok in spec.split(","):
+        tok = tok.strip()
+        if tok:
+            n = typ(tok)
+            if (typ is int and n < 1) or (typ is float and not 0 < n <= 1):
+                raise SystemExit(f"{flag}: bad count {n}")
+            counts.append(n)
+    if not counts:
+        raise SystemExit(
+            f"{flag} needs counts, e.g. "
+            + ("0.25,0.5,0.9" if typ is float else "1,2,4")
+        )
+    return counts
+
+
+def _run_sweep(counts: list, env_var: str, file_prefix: str, point_key: str,
+               metric_label: str, manifest_cfg_key: str, point_stats,
+               engine: "str | None" = None,
+               mode: str = "--device-leg", corpus=None,
+               manifest_env: str = "BENCH_RUN_MANIFEST",
+               gbs_of=None, timeout_s: "int | None" = None,
+               corpus_label: "str | None" = None) -> None:
+    """THE sweep harness the four sweeps share: one measured leg per count
+    with ``env_var`` riding into the subprocess and each leg writing its
+    own run manifest under BENCH_DIR/sweep/ (run-{prefix}{n}.json), so
+    scaling curves come from structured files. ``engine`` pins every
+    leg's BENCH_MAP_ENGINE (None keeps the caller's). Prints ONE JSON
+    line: the curve with per-point GB/s plus what ``point_stats(stats)``
+    extracts, anchored to the FIRST count, and the engine and platform
+    the legs ran on."""
+    _need_card()
+    if corpus is None:
+        corpus = build_corpus(TARGET_MB)
+    if gbs_of is None:
+        gbs_of = lambda res: res.get("gbs")  # noqa: E731
+    engine = engine or _map_engine()
+    sweep_dir = BENCH_DIR / "sweep"
+    sweep_dir.mkdir(parents=True, exist_ok=True)
+    curve = []
+    platform = "none"
+    for n in counts:
+        env = dict(os.environ)
+        env["BENCH_MAP_ENGINE"] = engine
+        env[env_var] = str(n)
+        env[manifest_env] = str(sweep_dir / f"run-{file_prefix}{n}.json")
+        if env.get("BENCH_TRACE"):
+            # Per-leg trace files: one shared --trace path would be
+            # rewritten by every leg and end up holding only the last.
+            env["BENCH_TRACE"] = str(sweep_dir / f"trace-{file_prefix}{n}.json")
+        res, err = _run_device_leg(
+            corpus, timeout_s or DEVICE_TIMEOUT_S, env,
+            init_timeout_s=PROBE_TIMEOUT_S, mode=mode,
+        )
+        point: dict = {point_key: n, "manifest": env[manifest_env]}
+        if res is None:
+            point["error"] = err
+        else:
+            platform = (res.get("info") or res.get("zipf") or {}).get("platform", platform)
+            gbs = gbs_of(res)
+            if gbs is not None:
+                point["gbs"] = round(gbs, 4)
+            point.update(point_stats(res.get("stats") or {}))
+        curve.append(point)
+        print(f"sweep {file_prefix}={n}: {json.dumps(point)}", file=sys.stderr)
+    # Anchor strictly to the FIRST requested count: if that leg failed,
+    # every speedup is null — a ratio against some other surviving count
+    # would silently misstate the scaling claim the field names.
+    base = curve[0].get("gbs")
+    result = {
+        "metric": f"word_count GB/s vs {metric_label} "
+                  f"({corpus_label or f'{TARGET_MB}MB corpus'}, "
+                  f"{engine} engine, counts {counts})",
+        "unit": "GB/s",
+        "sweep": curve,
+        "speedup_vs_first": [
+            round(p["gbs"] / base, 2) if p.get("gbs") and base else None
+            for p in curve
+        ],
+        "map_engine": engine,
+        "platform": platform,
+    }
+    mp = os.environ.get("BENCH_MANIFEST")
+    if mp:
+        # --manifest in sweep mode: the curve itself is the run's result.
+        try:
+            from mapreduce_rust_tpu_torch.runtime import telemetry
+
+            telemetry.write_manifest(mp, telemetry.build_manifest(
+                {manifest_cfg_key: counts, "target_mb": TARGET_MB,
+                 "map_engine": engine, "device": DEVICE},
+                extra={"kind": "bench_sweep_manifest", "result": result},
+            ))
+            print(f"sweep manifest: {mp}", file=sys.stderr)
+        except Exception as e:  # best-effort, like _write_bench_manifest
+            print(f"sweep manifest write failed: {e!r}", file=sys.stderr)
+    print(json.dumps(result))
+
+
+def sweep_host_workers(spec: str) -> None:
+    """`--sweep-host-workers 1,2,4`: the scan fan-out scaling curve, one
+    run manifest per worker count, on the host engine (the only one with
+    scan workers)."""
+
+    def point_stats(s: dict) -> dict:
+        split = s.get("host_map_split") or {}
+        return {
+            "bottleneck": s.get("bottleneck"),
+            "host_map_s": s.get("host_map_s"),
+            "scan_wait_s": s.get("scan_wait_s"),
+            "scan_parallelism": split.get("scan_parallelism"),
+        }
+
+    _run_sweep(
+        _parse_sweep_counts(spec, "--sweep-host-workers"),
+        "BENCH_HOST_WORKERS", "w", "workers", "host-map workers",
+        "sweep_counts", point_stats, engine="host",
+    )
+
+
+def sweep_fold_shards(spec: str) -> None:
+    """`--sweep-fold-shards 1,2,4`: the egress-fold scaling curve, one run
+    manifest per shard count, on the host engine (the only one with fold
+    shards)."""
+
+    def point_stats(s: dict) -> dict:
+        split = s.get("fold_split") or {}
+        return {
+            "bottleneck": s.get("bottleneck"),
+            "host_glue_s": s.get("host_glue_s"),
+            "fold_stall_s": s.get("fold_stall_s"),
+            "fold_parallelism": split.get("fold_parallelism"),
+            "fold_balance": split.get("balance"),
+        }
+
+    _run_sweep(
+        _parse_sweep_counts(spec, "--sweep-fold-shards"),
+        "BENCH_FOLD_SHARDS", "s", "fold_shards", "fold shards",
+        "sweep_fold_shards", point_stats, engine="host",
+    )
+
+
+def _zipf_sweep(spec: str, typ, flag: str, env_var: str, prefix: str,
+                point_key: str, label: str, cfg_key: str, point_stats,
+                engine: "str | None") -> None:
+    """A sweep of the Zipf leg (budgets engaged, exact against the
+    generator) once per point."""
+    zipf_mb = int(os.environ.get("BENCH_ZIPF_MB", "256"))
+    _run_sweep(
+        _parse_sweep_counts(spec, flag, typ=typ), env_var, prefix, point_key,
+        f"{label} (zipf leg)", cfg_key, point_stats, engine=engine,
+        mode="--zipf", corpus=pathlib.Path(str(zipf_mb)),
+        manifest_env="BENCH_ZIPF_RUN_MANIFEST",
+        gbs_of=lambda res: (res.get("zipf") or {}).get("gbs"),
+        timeout_s=int(os.environ.get("BENCH_ZIPF_TIMEOUT_S", "420")),
+        corpus_label=f"{zipf_mb}MB zipf corpus",
+    )
+
+
+def sweep_spill_budget(spec: str) -> None:
+    """`--sweep-spill-budget 131072,262144,524288`: the spill tiers'
+    pressure curve — the Zipf leg once per dictionary budget, the budget
+    riding in as BENCH_SPILL_BUDGET_WORDS, on the caller's engine (the
+    device engine by default, so each leg launches the scan kernel).
+    Smaller budget = more, smaller runs = more writer handoffs and a wider
+    egress fan-in; the per-point spill_split says whether the async writer
+    still hides the disk (stall_s ~ 0)."""
+
+    def point_stats(s: dict) -> dict:
+        split = s.get("spill_split") or {}
+        return {
+            "bottleneck": s.get("bottleneck"),
+            "wall_s": s.get("wall_seconds"),
+            "spill_write_s": split.get("write_s"),
+            "spill_stall_s": split.get("stall_s"),
+            "dict_runs": split.get("dict_runs"),
+            "merge_fanin": split.get("merge_fanin"),
+        }
+
+    _zipf_sweep(spec, int, "--sweep-spill-budget", "BENCH_SPILL_BUDGET_WORDS",
+                "b", "budget_words", "dictionary spill budget",
+                "sweep_spill_budget", point_stats, engine=None)
+
+
+def sweep_dispatch_fill(spec: str) -> None:
+    """`--sweep-dispatch-fill 0.25,0.5,0.9`: the dispatch plane's
+    coalescing curve — the Zipf leg once per dispatch_fill_frac, riding in
+    as BENCH_DISPATCH_FILL, on the host engine (the only one with a
+    dispatch plane). Lower fill = more, emptier merges; higher = fewer,
+    fuller device hops."""
+
+    def point_stats(s: dict) -> dict:
+        split = s.get("dispatch_split") or {}
+        return {
+            "bottleneck": s.get("bottleneck"),
+            "wall_s": s.get("wall_seconds"),
+            "dispatch_s": split.get("dispatch_s"),
+            "dispatch_stall_s": split.get("stall_s"),
+            "merge_dispatches": split.get("dispatches"),
+            "merge_fill_frac": split.get("fill_frac"),
+        }
+
+    _zipf_sweep(spec, float, "--sweep-dispatch-fill", "BENCH_DISPATCH_FILL",
+                "f", "dispatch_fill_frac", "dispatch fill threshold",
+                "sweep_dispatch_fill", point_stats, engine="host")
+
+
+def dispatch_ab_pair() -> None:
+    """`--dispatch-ab`: the Zipf spill leg with the FULL dispatch plane
+    (async + cross-window coalescing) against the sync path (inline
+    dispatch, no coalescing), INTERLEAVED min-of-N per side
+    (BENCH_DISPATCH_AB_REPEATS, 3) so machine drift hits both sides. On
+    the host engine, the only one with a dispatch plane; its merges run
+    on the card. One JSON line + one history row with both walls and the
+    speedup; exactness is enforced inside every leg (exit 3)."""
+    _need_card()
+    zipf_mb = int(os.environ.get("BENCH_ZIPF_MB", "256"))
+    repeats = int(os.environ.get("BENCH_DISPATCH_AB_REPEATS", "3"))
+    timeout = int(os.environ.get("BENCH_ZIPF_TIMEOUT_S", "420"))
+    sides: dict = {"plane": [], "pr10": []}
+    errors: list[str] = []
+    for r in range(repeats):
+        for side in ("plane", "pr10"):  # interleaved: drift hits both
+            env = dict(os.environ, BENCH_MAP_ENGINE="host")
+            if side == "pr10":
+                env["MR_DISPATCH_SYNC"] = "1"
+                env["BENCH_DISPATCH_COALESCE"] = "0"
+            res, err = _run_device_leg(
+                pathlib.Path(str(zipf_mb)), timeout, env,
+                init_timeout_s=PROBE_TIMEOUT_S, mode="--zipf",
+            )
+            if res is None:
+                errors.append(f"{side}[{r}]: {err}")
+                continue
+            sides[side].append(res.get("zipf") or {})
+            print(f"dispatch-ab {side}[{r}]: "
+                  f"wall={sides[side][-1].get('wall_s')}s",
+                  file=sys.stderr)
+
+    def best(rows: list) -> dict | None:
+        rows = [r for r in rows if r.get("wall_s")]
+        return min(rows, key=lambda r: r["wall_s"]) if rows else None
+
+    a, b = best(sides["plane"]), best(sides["pr10"])
+    speedup = (
+        round(b["wall_s"] / a["wall_s"], 3) if a and b else None
+    )
+    pick = lambda r: None if r is None else {  # noqa: E731
+        k: r.get(k) for k in (
+            "wall_s", "gbs", "bottleneck", "dispatch_mode", "dispatch_s",
+            "dispatch_stall_s", "merge_dispatches", "merge_fill_frac",
+            "spill_stall_s",
+        )
+    }
+    platform = (a or b or {}).get("platform", "none")
+    result = {
+        "metric": f"zipf dispatch-plane A/B ({zipf_mb}MB, host engine, "
+                  f"async+coalesce vs sync uncoalesced, interleaved "
+                  f"min-of-{repeats})",
+        "unit": "x",
+        "value": speedup,
+        "plane": pick(a),
+        "pr10": pick(b),
+        "map_engine": "host",
+        "platform": platform,
+    }
+    if errors:
+        result["error"] = "; ".join(errors)
+    _append_history({
+        "metric": result["metric"],
+        "value": speedup,
+        "unit": "x",
+        "platform": platform,
+        "map_engine": "host",
+        "zipf": a or {},
+        "dispatch_ab": {"plane": pick(a), "pr10": pick(b)},
+        "error": result.get("error"),
+    })
+    print(json.dumps(result))
+    if a is None or b is None:
+        raise SystemExit(1)
+
+
+#: Runs per side of each slow pair, interleaved (async, sync, sync, async):
+#: scheduling noise only ever adds to a wall, so each side's fastest run is
+#: its estimate, as in the overhead pairs and --dispatch-ab.
+_PAIR_RUNS = 2
+
+
+def _slow_pair(name: str, dev: tuple, path: str, base, knob: str, spec: str,
+               fired, side_stats) -> None:
+    """The body of the two chaos pairs, on ``dev`` = (platform, device
+    name) from the leg's ``_leg_device``: a chaos-free warm-up on a
+    one-window prefix (libraries load, the allocator warms), then the SAME
+    budgeted job under the seeded ``spec`` with ``knob`` on (async) and
+    off (sync), _PAIR_RUNS times per side. Outputs must stay bit-identical
+    and the fault must fire (else exit 3); ``hidden_s`` = the sync side's
+    fastest wall - the async side's."""
+    import dataclasses
+    import shutil
+
+    from mapreduce_rust_tpu_torch.runtime.driver import run_job
+
+    platform, device_name = dev
+    root = pathlib.Path(base.work_dir).parent
+    shutil.rmtree(root, ignore_errors=True)
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    warm = BENCH_DIR / f"warmup-{name.replace('_', '')}.txt"
+    with open(path, "rb") as f:
+        warm.write_bytes(f.read(base.host_window_bytes + 4096))
+    run_job(dataclasses.replace(
+        base, work_dir=str(root / "warm-work"),
+        output_dir=str(root / "warm-out"),
+        # Budgets off: a budgeted run demands write_outputs (streaming
+        # egress), and the warm-up exists for the loads only.
+        dictionary_budget_words=None, host_accum_budget_mb=None,
+    ), [str(warm)], write_outputs=False)
+
+    os.environ["MR_CHAOS"] = spec
+    runs: dict = {"async": [], "sync": []}
+    outputs: list = []
+    for i in range(_PAIR_RUNS):
+        order = (("async", True), ("sync", False))
+        for side, on in (order if i % 2 == 0 else order[::-1]):
+            cfg = dataclasses.replace(
+                base, **{knob: on},
+                work_dir=str(root / f"work-{side}"),
+                output_dir=str(root / f"out-{side}"),
+            )
+            shutil.rmtree(cfg.output_dir, ignore_errors=True)
+            t0 = time.perf_counter()
+            res = run_job(cfg, [str(path)])
+            runs[side].append({"wall_s": round(time.perf_counter() - t0, 3),
+                               **side_stats(res.stats)})
+            outputs.append({
+                p.name: p.read_bytes()
+                for p in sorted(pathlib.Path(cfg.output_dir).glob("mr-*.txt"))
+            })
+    sides = {side: min(rows, key=lambda r: r["wall_s"]) for side, rows in runs.items()}
+    n_fired = len(fired(spec))
+    identical = bool(outputs[0]) and all(out == outputs[0] for out in outputs)
+    print(json.dumps({
+        name: {
+            "platform": platform,
+            "device_name": device_name,
+            "map_engine": base.map_engine,
+            "spec": spec,
+            "fired": n_fired,
+            "runs_per_side": _PAIR_RUNS,
+            "async": sides["async"],
+            "sync": sides["sync"],
+            "walls_s": {side: [r["wall_s"] for r in rows] for side, rows in runs.items()},
+            "hidden_s": round(sides["sync"]["wall_s"] - sides["async"]["wall_s"], 3),
+            "outputs_identical": identical,
+        }
+    }))
+    if not identical or n_fired == 0:
+        raise SystemExit(3)
+
+
+def slow_dispatch_leg(path: str) -> None:
+    """Runs in a subprocess (--slow-dispatch-leg): the SAME word-count job
+    under a seeded per-merge-dispatch delay (``slow_dispatch``), async
+    dispatch plane against the inline sync path, on the host engine with
+    its merges on the card. The async side overlaps the delayed hops with
+    the router's fold (stall only when the depth-bounded queue fills); the
+    sync side eats every delay on the router's wall. ``path`` is unused:
+    the leg builds its own high-cardinality Zipf corpus."""
+    dev = _leg_device()
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.runtime.driver import dispatch_chaos_fired
+
+    # Rate-matched injection: a small delay on EVERY dispatch pipelines
+    # through the depth-bounded queue, so the async side can hide it
+    # behind the router's fold; few-but-large delays cannot show that
+    # (the bounded queue caps run-ahead per sleep episode).
+    spec = os.environ.get("BENCH_SLOW_DISPATCH_SPEC", "seed=7;slow_dispatch:0.01")
+    corpus, _counts = build_zipf_corpus(
+        int(os.environ.get("BENCH_SLOW_DISPATCH_MB", "48")))
+    root = BENCH_DIR / "slow-dispatch"
+    base = Config(
+        map_engine="host",
+        # Small windows and a small staging cap: the staging buffer
+        # crosses its fill threshold once or more per window, so the delay
+        # fires a dispatch-rate stream on both sides (coalescing stays on
+        # for both: the pair isolates the overlap). The engaged dictionary
+        # budget gives the router's fold per-window work of its own.
+        host_window_bytes=256 << 10,
+        chunk_bytes=1 << 20,
+        merge_capacity=1 << 14,          # constant device eviction = compute
+        host_update_cap=1 << 13,
+        # The fold stays on the router: it is the work the async plane
+        # overlaps the delayed hops with. Auto fold shards (1 below 4
+        # cores, 4 on an 8-core host) would move it to shard threads and
+        # leave the router idle, with nothing to hide the delay behind.
+        fold_shards=1,
+        dictionary_budget_words=4096,
+        host_accum_budget_mb=64,
+        reduce_n=4,
+        device=DEVICE,
+        work_dir=str(root / "work"),
+        output_dir=str(root / "out"),
+    )
+    _slow_pair("slow_dispatch", dev, str(corpus), base, "dispatch_async", spec,
+               dispatch_chaos_fired,
+               lambda s: {"dispatch_s": round(s.dispatch_s, 3),
+                          "dispatch_stall_s": round(s.dispatch_stall_s, 3),
+                          "merge_dispatches": s.merge_dispatches,
+                          "glue_s": round(s.host_glue_s, 3)})
+
+
+def slow_disk_leg(path: str) -> None:
+    """Runs in a subprocess (--slow-disk-leg): the SAME budgeted
+    word-count job under a seeded per-spill-run write delay
+    (``slow_disk``), async writer against the sync plane, on the host
+    engine with its merges on the card. The async side overlaps the
+    delayed writes with scan and merge (stall only when the depth-2
+    buffer fills); the sync side eats every delay on the fold thread's
+    wall."""
+    dev = _leg_device()
+
+    from mapreduce_rust_tpu_torch.config import Config
+    from mapreduce_rust_tpu_torch.runtime.spill import chaos_fired
+
+    spec = os.environ.get("BENCH_SLOW_DISK_SPEC", "seed=6;slow_disk:0.25")
+    root = BENCH_DIR / "slow-disk"
+    base = Config(
+        map_engine="host",
+        # Small windows: a batch flush fires at most once per window, so
+        # window count bounds run count — a steady stream of delayed
+        # writes to hide.
+        host_window_bytes=1 << 20,
+        chunk_bytes=1 << 20,
+        merge_capacity=1 << 14,          # constant device eviction = compute
+        dictionary_budget_words=1024,    # every new-vocab window flushes
+        host_accum_budget_mb=64,
+        reduce_n=4,
+        device=DEVICE,
+        work_dir=str(root / "work"),
+        output_dir=str(root / "out"),
+    )
+    _slow_pair("slow_disk", dev, path, base, "spill_async", spec, chaos_fired,
+               lambda s: {"spill_write_s": round(s.spill_s, 3),
+                          "spill_stall_s": round(s.spill_stall_s, 3),
+                          "runs": s.dict_spill_runs + s.accum_spill_runs})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_CHAOS_TEXTS = [
+    b"the quick brown fox jumps over the lazy dog " * 400,
+    b"pack my box with five dozen liquor jugs " * 400,
+    b"sphinx of black quartz judge my vow " * 400,
+]
+
+
+def _fleet_env() -> dict:
+    """The environment of a fleet's processes: this one's, with the repo
+    first on the path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _start(role: str, args: list, env: dict, log_dir: pathlib.Path):
+    """One fleet process of the port's CLI, its stderr in
+    ``log_dir/{role}.log``."""
+    with open(log_dir / f"{role}.log", "wb") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mapreduce_rust_tpu_torch", *args],
+            env=env, cwd=str(REPO), stdout=subprocess.DEVNULL, stderr=log,
+        )
+
+
+def _worker_manifests(manifest: pathlib.Path) -> list[dict]:
+    """What each worker's per-process manifest (``manifest-w<pid>.json``
+    beside ``manifest``) says it ran: engine, the card's name, its
+    tokenize_hash launches, its map-task grants and its kernel builds."""
+    rows = []
+    for p in sorted(manifest.parent.glob(f"{manifest.stem}-w*.json")):
+        try:
+            m = json.loads(p.read_text())
+        except (OSError, ValueError):
+            continue
+        tasks = (m.get("report") or {}).get("tasks") or {}
+        rows.append({
+            "engine": m.get("engine"),
+            "device_name": (m.get("platform") or {}).get("device_name"),
+            "tokenize_hash": (m.get("kernel_launches") or {}).get("tokenize_hash"),
+            "map_grants": sum(t.get("grants", 0) for t in tasks.get("map", {}).values()),
+            "kernel_builds": m.get("kernel_builds"),
+        })
+    return rows
+
+
+def _chaos_cluster(name: str, work_root: pathlib.Path, chaos_spec: str | None,
+                   speculate: bool, timeout_s: int = 120,
+                   trace: bool = False, app: str = "word_count",
+                   sched: str = "fifo") -> dict:
+    """One chaos leg: coordinator + 2 worker OS processes of the port's CLI
+    over TCP (the recovery paths under test live in the real renewal and
+    report loops). Faults ride in as MR_CHAOS on BOTH workers: the seeded
+    spec targets (phase, tid, wid), so which process draws which task
+    stays irrelevant. The workers run BENCH_MAP_ENGINE's engine (the
+    device engine on the card by default) with ``--device`` BENCH_DEVICE,
+    and each writes its manifest beside the coordinator's. Returns wall
+    (coordinator exit = job complete), output bytes, the leg dir (``dir``:
+    job_report.json and traces live under it), the coordinator manifest
+    path for the doctor and the workers' manifests."""
+    leg = work_root / name
+    docs = leg / "in"
+    docs.mkdir(parents=True)
+    for i, t in enumerate(_CHAOS_TEXTS):
+        (docs / f"doc-{i}.txt").write_bytes(t)
+    port = _free_port()
+    manifest = leg / "manifest.json"
+    engine = _map_engine()
+    common = [
+        "--input", str(docs), "--output", str(leg / "out"),
+        "--work", str(leg / "work"), "--port", str(port), "--reduce-n", "3",
+        "--app", app, "--manifest", str(manifest),
+        "--lease-timeout", "2.0", "--lease-check-period", "0.3",
+        "--renew-period", "0.3", "--poll-retry", "0.05",
+    ]
+    if sched != "fifo":
+        # --sched rides in `common` so the coordinator and BOTH workers
+        # agree on the mode.
+        common += ["--sched", sched]
+    if trace:
+        common += ["--trace", str(leg / "trace.json")]
+    coord_args = ["coordinator", "--worker-n", "2", *common]
+    if speculate:
+        coord_args += ["--speculate", "--speculate-after-frac", "0.5"]
+    env = _fleet_env()
+    worker_env = dict(env)
+    if chaos_spec:
+        worker_env["MR_CHAOS"] = chaos_spec
+    t0 = time.perf_counter()
+    coord = _start("coord", coord_args, env, leg)
+    workers = [
+        _start(f"worker-{i}", ["worker", "--engine", engine, "--device", DEVICE,
+                               *common], worker_env, leg)
+        for i in range(2)
+    ]
+    result: dict = {"scenario": name, "speculate": speculate, "sched": sched,
+                    "map_engine": engine}
+    try:
+        rc = coord.wait(timeout=timeout_s)
+        result["wall_s"] = round(time.perf_counter() - t0, 3)
+        result["recovered"] = rc == 0
+        for w in workers:
+            try:
+                w.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                w.kill()
+                result["recovered"] = False
+    except subprocess.TimeoutExpired:
+        result["recovered"] = False
+        result["error"] = f"coordinator did not finish within {timeout_s}s"
+    finally:
+        for p in [coord, *workers]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result["outputs"] = {
+        p.name: p.read_bytes()
+        for p in sorted((leg / "out").glob("mr-*.txt"))
+    }
+    # The coordinator writes its manifest under the per-process name
+    # (manifest-coord.json): co-hosted processes never clobber each other.
+    from mapreduce_rust_tpu_torch.runtime.trace import per_process_path
+
+    coord_manifest = pathlib.Path(per_process_path(str(manifest), "coord"))
+    if coord_manifest.exists():
+        result["manifest"] = str(coord_manifest)
+    result["workers"] = _worker_manifests(manifest)
+    result["dir"] = str(leg)
+    return result
+
+
+def _pair_leg(name: str, corpus: pathlib.Path, timeout_env: str,
+              mode: str) -> tuple[dict, bool]:
+    """Run one slow pair in its subprocess: (its detail dict, passed).
+    It passes when it ran, its outputs are identical and the async side
+    measurably hid the injected delay the sync side eats (hidden_s > 0)."""
+    res, err = _run_device_leg(
+        corpus, int(os.environ.get(timeout_env, "300")), None,
+        init_timeout_s=PROBE_TIMEOUT_S, mode=mode,
+    )
+    if res is None:
+        return {"error": err}, False
+    det = res.get(name) or {}
+    hidden = det.get("hidden_s")
+    return det, bool(det.get("outputs_identical")) and hidden is not None and hidden > 0
+
+
+def chaos_legs() -> None:
+    """``bench_torch.py --chaos``: the seeded fault-injection matrix
+    (analysis/chaos.SCENARIOS) over the port's control plane. Each
+    scenario measures recovery cost (wall vs the fault-free baseline),
+    checks the outputs stay BIT-IDENTICAL to the fault-free run, runs the
+    doctor on the coordinator manifest and ``run_check`` on the leg's
+    journal and report (a violation fails the matrix), and appends a
+    history row. slow_scan runs with speculation off, then on; a
+    pipelined pair (fault-free and kill) follows. Then the slow-disk and
+    slow-dispatch pairs, each in its subprocess. Prints ONE JSON line;
+    exits 1 if any leg failed to recover, diverged or broke the protocol,
+    or a pair hid nothing."""
+    import shutil
+
+    from mapreduce_rust_tpu_torch.analysis.chaos import SCENARIOS
+    from mapreduce_rust_tpu_torch.analysis.doctor import diagnose
+    from mapreduce_rust_tpu_torch.analysis.mrcheck import run_check
+    from mapreduce_rust_tpu_torch.runtime.telemetry import load_manifest
+
+    _need_card()
+    _build_libraries()
+    engine = _map_engine()
+    platform = _leg_platform(engine)
+    work_root = BENCH_DIR / "chaos"
+    shutil.rmtree(work_root, ignore_errors=True)
+    legs: list[tuple[str, str | None, bool, str]] = [
+        ("baseline", None, False, "fifo"),
+    ]
+    for name, spec in SCENARIOS.items():
+        if name == "slow_scan":
+            legs.append(("slow_scan-nospec", spec, False, "fifo"))
+            legs.append(("slow_scan-spec", spec, True, "fifo"))
+        else:
+            legs.append((name, spec, False, "fifo"))
+    # Pipelined pair: per-partition reduce release must survive a mid-map
+    # re-execution and both legs stay bit-identical to the FIFO baseline.
+    legs.append(("baseline-pipeline", None, False, "pipeline"))
+    legs.append(("kill-pipeline", SCENARIOS["kill"], False, "pipeline"))
+    baseline_outputs = None
+    baseline_wall = None
+    rows = []
+    ok = True
+    for name, spec, speculate, sched in legs:
+        r = _chaos_cluster(name, work_root, spec, speculate, sched=sched)
+        outputs = r.pop("outputs")
+        if name == "baseline":
+            baseline_outputs, baseline_wall = outputs, r.get("wall_s")
+            r["bit_identical"] = bool(outputs)
+        else:
+            r["bit_identical"] = bool(outputs) and outputs == baseline_outputs
+            if baseline_wall is not None and r.get("wall_s") is not None:
+                r["recovery_cost_s"] = round(r["wall_s"] - baseline_wall, 3)
+        if r.get("manifest"):
+            try:
+                diag = diagnose(load_manifest(r["manifest"]))
+                r["doctor"] = {
+                    "findings": [
+                        f"[{f['severity']}] {f['code']}: {f['message']}"
+                        for f in (diag.get("findings") or [])[:6]
+                    ],
+                    "speculation": diag.get("speculation"),
+                }
+            except Exception as e:
+                r["doctor"] = {"error": repr(e)}
+        # run_check on the leg's control-plane artifacts (journal +
+        # job_report under work/) is the matrix's real oracle: matching
+        # bytes say nothing about a double-granted lease.
+        try:
+            cdoc = run_check(str(pathlib.Path(r["dir"]) / "work"))
+            r["mrcheck"] = {
+                "ok": cdoc["ok"],
+                "violations": [
+                    f"[{v['code']}] {v['message']}"
+                    for v in cdoc["violations"][:6]
+                ],
+            }
+            if not cdoc["ok"]:
+                ok = False
+        except Exception as e:  # an uncheckable leg is a failed leg
+            ok = False
+            r["mrcheck"] = {"ok": False, "error": repr(e)}
+        ok = ok and r.get("recovered", False) and r["bit_identical"]
+        rows.append(r)
+        print(f"chaos {name}: wall={r.get('wall_s')}s recovered="
+              f"{r.get('recovered')} identical={r['bit_identical']} "
+              f"mrcheck={'ok' if r['mrcheck']['ok'] else 'VIOLATION'}",
+              file=sys.stderr)
+        _append_history({
+            "metric": f"chaos recovery ({name})",
+            "value": None,  # chaos rows must not pollute the trend series
+            "unit": "s",
+            "platform": platform,
+            "map_engine": engine,
+            "doctor": r.get("doctor"),
+            "chaos_scenario": name,
+            "chaos_wall_s": r.get("wall_s"),
+            "chaos_recovery_cost_s": r.get("recovery_cost_s"),
+            "chaos_bit_identical": r["bit_identical"],
+            "chaos_speculate": speculate,
+            "chaos_sched": sched,
+            "chaos_mrcheck": r["mrcheck"],
+        })
+    # The two pairs: the cluster legs run unbudgeted on the device engine,
+    # where neither delay fires, so the proof that the async writer and
+    # the dispatch thread HIDE them needs budgeted host-engine jobs.
+    pairs = {}
+    for pname, corpus, timeout_env, mode in (
+        ("slow_disk", lambda: build_corpus(min(TARGET_MB, 24)),
+         "BENCH_SLOW_DISK_TIMEOUT_S", "--slow-disk-leg"),
+        # The leg builds its own Zipf corpus; the argument is unused.
+        ("slow_dispatch", lambda: pathlib.Path("zipf-slow-dispatch"),
+         "BENCH_SLOW_DISPATCH_TIMEOUT_S", "--slow-dispatch-leg"),
+    ):
+        try:
+            pairs[pname], passed = _pair_leg(pname, corpus(), timeout_env, mode)
+        except Exception as e:
+            pairs[pname], passed = {"error": repr(e)}, False
+        ok = ok and passed
+        print(f"chaos {pname} pair: {json.dumps(pairs[pname])}", file=sys.stderr)
+        _append_history({
+            "metric": f"chaos {pname}: async-vs-sync "
+                      f"{'spill' if pname == 'slow_disk' else 'dispatch'} pair",
+            "value": None,  # chaos rows stay out of the trend series
+            "unit": "s",
+            "platform": pairs[pname].get("platform", "none"),
+            "map_engine": "host",
+            "chaos_scenario": f"{pname}-pair",
+            f"chaos_{pname}": pairs[pname],
+        })
+    nospec = next((r for r in rows if r["scenario"] == "slow_scan-nospec"), None)
+    spec = next((r for r in rows if r["scenario"] == "slow_scan-spec"), None)
+    result = {
+        "metric": "chaos matrix: seeded fault recovery, wall seconds per "
+                  f"scenario (coordinator+2 workers, {engine} engine, {platform})",
+        "unit": "s",
+        "ok": ok,
+        "baseline_wall_s": baseline_wall,
+        "scenarios": rows,
+        "slow_disk_pair": pairs["slow_disk"],
+        "slow_dispatch_pair": pairs["slow_dispatch"],
+        "speculation_speedup": (
+            round(nospec["wall_s"] / spec["wall_s"], 2)
+            if nospec and spec and nospec.get("wall_s") and spec.get("wall_s")
+            else None
+        ),
+        "map_engine": engine,
+        "platform": platform,
+    }
+    print(json.dumps(result))
+    if not ok:
+        raise SystemExit(1)
+
+
+def _service_run(k_jobs: int, sched: str, root: pathlib.Path,
+                 docs_n: int = 3, scale: int = 1) -> dict:
+    """One service cluster run over the mixed two-wave matrix: one
+    OS-process service (torch-free) + 2 service workers of the port's CLI
+    under ``--sched {sched}``, the workers on BENCH_MAP_ENGINE's engine
+    (the device engine on the card by default), each with a manifest; a
+    stream of K mixed submissions (three distinct (app, corpus) triples
+    cycled, so repeats past the first cycle are cache hits). Measures
+    jobs/minute, queue-wait p95 and the cache hit rate; run_check over the
+    service work root fails the run on a violation; the fleet profiler
+    adds the bubble fraction and pipelining opportunity. Returns the
+    result dict WITHOUT printing or touching history — shared by
+    --service-leg and --sched-ab."""
+    import asyncio
+    import shutil
+
+    from mapreduce_rust_tpu_torch.analysis.mrcheck import run_check
+    from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
+
+    shutil.rmtree(root, ignore_errors=True)
+    corpora = []
+    for ci in range(3):
+        d = root / f"corpus-{ci}"
+        d.mkdir(parents=True)
+        # docs_n/scale size the per-job map wave and per-task weight: the
+        # default is the tiny matrix; the sched A/B needs real phase
+        # windows or the scheduling delta drowns in process startup.
+        for i in range(max(3, docs_n)):
+            t = _CHAOS_TEXTS[i % len(_CHAOS_TEXTS)] * max(1, scale)
+            # Distinct corpora (distinct digests): a per-corpus marker
+            # token repeated ci+1 times; a per-doc token keeps repeated
+            # texts from collapsing into identical files.
+            (d / f"doc-{i}.txt").write_bytes(
+                t + f"doc{i} ".encode()
+                + (f"corpusmark{ci} " * (ci + 1)).encode()
+            )
+        corpora.append(str(d))
+    # Three distinct (app, corpus, config) triples: every submission past
+    # the first cycle is an exact repeat and must hit the result cache.
+    triples = [
+        {"app": "word_count", "input_dir": corpora[0], "reduce_n": 3},
+        {"app": "inverted_index", "input_dir": corpora[1], "reduce_n": 2},
+        {"app": "word_count", "input_dir": corpora[2], "reduce_n": 3},
+    ]
+    port = _free_port()
+    env = _fleet_env()
+    engine = _map_engine()
+    manifest = root / "manifest.json"
+    common = [
+        "--input", corpora[0], "--output", str(root / "out"),
+        "--work", str(root / "work"), "--port", str(port),
+        "--lease-timeout", "5.0", "--lease-check-period", "0.3",
+        "--renew-period", "0.3", "--poll-retry", "0.05",
+        # The service AND its workers agree on the scheduling mode.
+        "--sched", sched,
+    ]
+    svc = _start("service", ["service", "--max-jobs", "3", *common], env, root)
+    workers = [
+        _start(f"worker-{i}", ["worker", "--service", "--engine", engine,
+                               "--device", DEVICE, "--manifest", str(manifest),
+                               *common], env, root)
+        for i in range(2)
+    ]
+    platform = _leg_platform(engine)
+    result: dict = {
+        "metric": "job service: K mixed submissions, jobs/minute "
+                  f"(service+2 workers, {engine} engine, {platform})",
+        "unit": "jobs/min", "k_jobs": k_jobs, "sched": sched,
+        "map_engine": engine, "platform": platform,
+    }
+    ok = True
+    try:
+        async def drive() -> dict:
+            from mapreduce_rust_tpu_torch.coordinator.server import CoordinatorClient
+
+            client = CoordinatorClient("127.0.0.1", port, timeout_s=15.0)
+            await client.connect(retries=100, delay=0.1, budget_s=20.0)
+            deadline = time.perf_counter() + int(
+                os.environ.get("BENCH_SERVICE_TIMEOUT_S", "300")
+            )
+            jids: list = []
+            states: dict = {}
+
+            async def submit(spec) -> None:
+                res = await client.call("submit_job", spec)
+                if not res.get("ok"):
+                    raise RuntimeError(f"submit rejected: {res}")
+                jids.append(res["job"])
+
+            async def wait_done() -> None:
+                nonlocal states
+                while time.perf_counter() < deadline:
+                    view = await client.call("stats")
+                    states = {j["job"]: j["state"] for j in view["jobs"]}
+                    if all(states.get(j) == "done" for j in jids):
+                        return
+                    await asyncio.sleep(0.2)
+
+            t0 = time.perf_counter()
+            # Wave 1: the three distinct triples — real compute. Wave 2
+            # (after wave 1 settles): every remaining submission repeats a
+            # triple, so the expected cache-hit count is EXACT (K-3).
+            for i in range(min(3, k_jobs)):
+                await submit(triples[i % 3])
+            await wait_done()
+            for i in range(3, k_jobs):
+                await submit(triples[i % 3])
+            await wait_done()
+            wall_s = time.perf_counter() - t0
+            view = await client.call("stats")
+            await client.call("shutdown")
+            await client.close()
+            return {"wall_s": wall_s, "states": states, "view": view}
+
+        out = asyncio.run(drive())
+        states = out["states"]
+        completed = sum(1 for j in states.values() if j == "done")
+        ok = completed == k_jobs
+        sv = out["view"]["service"]
+        cache = sv["cache"]
+        lookups = cache["hits"] + cache["misses"]
+        qh = Histogram.from_dict(sv["queue_wait_s"])
+        result.update({
+            "value": round(completed / (out["wall_s"] / 60.0), 2),
+            "wall_s": round(out["wall_s"], 3),
+            "completed": completed,
+            "cache_hits": cache["hits"],
+            "cache_hit_rate": (
+                round(cache["hits"] / lookups, 3) if lookups else None
+            ),
+            "queue_wait_p95_s": (
+                round(qh.percentile(0.95) or 0.0, 3) if qh.count else None
+            ),
+        })
+        # The expected hit count is exact: a lower number = the cache broke.
+        expected_hits = max(k_jobs - 3, 0)
+        if cache["hits"] < expected_hits:
+            ok = False
+            result["error"] = (
+                f"cache hits {cache['hits']} < expected {expected_hits}"
+            )
+    except Exception as e:
+        ok = False
+        result["error"] = repr(e)
+    finally:
+        for p in [svc, *workers]:
+            # The shutdown sends the workers DONE: let them write their
+            # manifests before a terminate (a drain) or a kill.
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                try:
+                    p.terminate()
+                    p.wait(timeout=20)
+                except (OSError, subprocess.TimeoutExpired):
+                    p.kill()
+                    p.wait()
+    result["workers"] = _worker_manifests(manifest)
+    # run_check over the whole service work root (every job's journal +
+    # report): the leg's conformance oracle.
+    try:
+        cdoc = run_check(str(root / "work"))
+        result["mrcheck"] = {
+            "ok": cdoc["ok"],
+            "jobs": cdoc["checked"].get("jobs"),
+            "violations": [
+                f"[{v['code']}] {v['message']}"
+                for v in cdoc["violations"][:6]
+            ],
+        }
+        ok = ok and cdoc["ok"]
+    except Exception as e:  # an uncheckable leg is a failed leg
+        ok = False
+        result["mrcheck"] = {"ok": False, "error": repr(e)}
+    # Fleet profiler over the same work root: cross-job utilization,
+    # barrier-bubble fraction and the per-job pipelining opportunity.
+    # Post-mortem only, so a profiler failure degrades to nulls.
+    try:
+        from mapreduce_rust_tpu_torch.runtime.fleet import (
+            build_fleet_report,
+            fleet_history_row,
+        )
+
+        result.update(fleet_history_row(build_fleet_report(str(root / "work"))))
+    except Exception as e:
+        result["fleet_error"] = repr(e)
+    result["ok"] = ok
+    return result
+
+
+def _service_history(result: dict, sched: str, k_jobs: int, metric: str,
+                     unit: str = "jobs/min", **extra) -> None:
+    """The history row of a service run: its jobs/min, queue-wait p95 and
+    cache-hit rate under the service_ keys (value None: jobs/min has its
+    own trend series), its fleet_ and pipelining_ keys."""
+    _append_history({
+        "metric": metric,
+        "value": None,
+        "unit": unit,
+        "platform": result.get("platform"),
+        "map_engine": result.get("map_engine"),
+        "service_sched": sched,
+        "service_jobs_per_min": result.get("value"),
+        "service_queue_wait_p95_s": result.get("queue_wait_p95_s"),
+        "service_cache_hit_rate": result.get("cache_hit_rate"),
+        "service_k_jobs": k_jobs,
+        "service_mrcheck": result.get("mrcheck"),
+        **{k: v for k, v in result.items()
+           if k.startswith(("fleet_", "pipelining_"))},
+        **extra,
+    })
+
+
+def service_leg(k_jobs: int | None = None) -> None:
+    """``bench_torch.py --service-leg``: continuous-traffic throughput of
+    the multi-tenant job service — one _service_run over the mixed
+    two-wave matrix, recorded into the history. BENCH_SERVICE_SCHED=
+    pipeline runs it under the pipelined scheduler; the A/B pair is
+    ``--sched-ab``. Prints ONE JSON line; exit 1 on failure."""
+    _need_card()
+    _build_libraries()
+    k_jobs = k_jobs or int(os.environ.get("BENCH_SERVICE_JOBS", "12"))
+    sched = os.environ.get("BENCH_SERVICE_SCHED", "fifo")
+    result = _service_run(k_jobs, sched, BENCH_DIR / "service")
+    _service_history(result, sched, k_jobs, result["metric"], error=result.get("error"))
+    print(json.dumps(result))
+    if not result["ok"]:
+        raise SystemExit(1)
+
+
+def service_sched_ab(k_jobs: int | None = None) -> None:
+    """``bench_torch.py --sched-ab``: the SAME mixed two-wave matrix under
+    ``--sched fifo`` and ``--sched pipeline``, sides INTERLEAVED per repeat
+    (BENCH_SCHED_AB_REPEATS, 1) so machine drift hits both. Best repeat per
+    side by jobs/min; one JSON line + ONE history row with both sides (the
+    pipeline side feeds the watched service_ series). Correctness (all
+    jobs done, exact cache-hit count, run_check clean) fails the pair; the
+    throughput delta is recorded, not gated."""
+    _need_card()
+    _build_libraries()
+    k_jobs = k_jobs or int(os.environ.get("BENCH_SERVICE_JOBS", "12"))
+    repeats = int(os.environ.get("BENCH_SCHED_AB_REPEATS", "1"))
+    # Heavier matrix than the single leg's: enough docs (map tasks) and
+    # bytes per task that phase windows are real and barrier bubbles
+    # exist for the pipeline side to fill.
+    docs_n = int(os.environ.get("BENCH_SCHED_AB_DOCS", "12"))
+    scale = int(os.environ.get("BENCH_SCHED_AB_SCALE", "8"))
+    sides: dict = {"fifo": [], "pipeline": []}
+    ok = True
+    for rep in range(repeats):
+        for sched in ("fifo", "pipeline"):  # interleaved: drift hits both
+            try:
+                res = _service_run(
+                    k_jobs, sched, BENCH_DIR / f"service-ab-{sched}",
+                    docs_n=docs_n, scale=scale,
+                )
+            except Exception as e:
+                res = {"ok": False, "error": repr(e), "sched": sched}
+            ok = ok and bool(res.get("ok"))
+            sides[sched].append(res)
+            print(
+                f"sched-ab {sched}[{rep}]: jobs/min={res.get('value')} "
+                f"queue_p95={res.get('queue_wait_p95_s')}s "
+                f"bubble={res.get('fleet_bubble_frac')} "
+                f"pipelining_opp={res.get('pipelining_opportunity_s')}s "
+                f"ok={res.get('ok')}",
+                file=sys.stderr,
+            )
+
+    def best(rows: list) -> dict:
+        scored = [r for r in rows if r.get("value")]
+        return max(scored or rows, key=lambda r: r.get("value") or 0.0)
+
+    f, p = best(sides["fifo"]), best(sides["pipeline"])
+    pick = lambda r: {  # noqa: E731
+        k: r.get(k) for k in (
+            "value", "wall_s", "queue_wait_p95_s", "cache_hit_rate",
+            "fleet_bubble_frac", "fleet_util_frac",
+            "pipelining_opportunity_s", "ok", "error", "completed",
+            "cache_hits", "mrcheck", "workers",
+        )
+    }
+    speedup = (
+        round(p["value"] / f["value"], 3)
+        if p.get("value") and f.get("value") else None
+    )
+    engine = _map_engine()
+    result = {
+        "metric": f"service sched A/B ({k_jobs} mixed jobs, fifo vs "
+                  f"pipeline, {engine} engine, interleaved best-of-{repeats})",
+        "unit": "x",
+        "value": speedup,
+        "fifo": pick(f),
+        "pipeline": pick(p),
+        "ok": ok,
+        "k_jobs": k_jobs,
+        "docs": docs_n,
+        "map_engine": engine,
+        "platform": _leg_platform(engine),
+    }
+    # The pipeline side feeds the watched series: it is the configuration
+    # the scheduling plane ships with.
+    _service_history(p, "pipeline", k_jobs, result["metric"], unit="x",
+                     service_sched_ab={"fifo": pick(f), "pipeline": pick(p)},
+                     service_sched_speedup=speedup)
+    print(json.dumps(result))
+    if not ok:
+        raise SystemExit(1)
 
 
 def main() -> None:
@@ -1361,9 +2516,19 @@ def _append_history(result: dict) -> None:
             ),
             "had_errors": bool(result.get("error")),
         }
-        # Sort rows carry their own fields verbatim; their "value" stays
-        # None so the GB/s series never mixes in sort walls.
-        line.update({k: v for k, v in result.items() if k.startswith("sort_")})
+        # Chaos, service, sort, fleet and model rows carry their own fields
+        # verbatim; their "value" stays None so the GB/s series never
+        # mixes in recovery walls or jobs per minute.
+        line.update({
+            k: v for k, v in result.items()
+            if k.startswith(("chaos_", "service_", "sort_", "fleet_",
+                             "pipelining_", "model_", "dispatch_ab"))
+        })
+        if result.get("chaos_scenario"):
+            line["doctor_findings"] = [
+                f.split(": ", 1)[0]
+                for f in ((result.get("doctor") or {}).get("findings") or [])
+            ]
         BENCH_DIR.mkdir(parents=True, exist_ok=True)
         with open(BENCH_DIR / "history.jsonl", "a") as f:
             f.write(json.dumps(line) + "\n")
@@ -1462,8 +2627,26 @@ def _take_switch(argv: list, flag: str) -> bool:
     return False
 
 
+def _one_line(run, fail: dict, tag: str, catch_exit: bool = False) -> None:
+    """Run a mode so that its ONE JSON line survives any failure: when it
+    raises, print ``fail`` with the error and exit 1. A SystemExit passes
+    through (the mode printed its line first) unless ``catch_exit``: a
+    sweep's bad counts are a usage error that still gets its line."""
+    try:
+        run()
+    except BaseException as e:
+        if isinstance(e, SystemExit) and not catch_exit:
+            raise
+        print(json.dumps({**fail, "error": f"{tag} harness: {e!r}"}))
+        raise SystemExit(1)
+
+
 if __name__ == "__main__":
     _argv = sys.argv[1:]
+    if _take_switch(_argv, "--sanitize"):
+        # Thread-ownership sanitizer on every leg and fleet process: the
+        # env var rides into every child environment.
+        os.environ["MR_SANITIZE"] = "1"
     _trace = _take_flag(_argv, "--trace")
     if _trace:
         os.environ["BENCH_TRACE"] = str(pathlib.Path(_trace).resolve())
@@ -1476,45 +2659,76 @@ if __name__ == "__main__":
         os.environ.setdefault(
             "BENCH_RUN_MANIFEST", str(_mp.with_name(_mp.stem + "-run.json"))
         )
+    for _flag, _var in (("--host-workers", "BENCH_HOST_WORKERS"),
+                        ("--fold-shards", "BENCH_FOLD_SHARDS")):
+        _v = _take_flag(_argv, _flag)
+        if _v:
+            # A bad value is a usage error here, not an opaque traceback
+            # in every leg's subprocess.
+            if not _v.isdigit() or int(_v) < 1:
+                raise SystemExit(f"{_flag} needs a positive integer, got {_v!r}")
+            os.environ[_var] = _v
+    if _take_switch(_argv, "--sync-spill"):
+        os.environ["MR_SPILL_SYNC"] = "1"  # the inline spill writer, every leg
+    if _take_switch(_argv, "--sync-dispatch"):
+        os.environ["MR_DISPATCH_SYNC"] = "1"  # inline merge dispatch, every leg
+    _chaos = _take_switch(_argv, "--chaos")
+    _sched_ab = _take_switch(_argv, "--sched-ab")
+    _service_leg = _take_switch(_argv, "--service-leg") or _sched_ab
     _sort_leg = _take_switch(_argv, "--sort-leg")
+    _model_leg = _take_switch(_argv, "--model-leg")
+    _sweeps = [
+        (_take_flag(_argv, flag), fn, label)
+        for flag, fn, label in (
+            ("--sweep-host-workers", sweep_host_workers,
+             "word_count GB/s vs host-map workers"),
+            ("--sweep-fold-shards", sweep_fold_shards,
+             "word_count GB/s vs fold shards"),
+            ("--sweep-spill-budget", sweep_spill_budget,
+             "zipf GB/s vs dictionary spill budget"),
+            ("--sweep-dispatch-fill", sweep_dispatch_fill,
+             "zipf GB/s vs dispatch fill threshold"),
+        )
+    ]
+    _dispatch_ab = _take_switch(_argv, "--dispatch-ab")
     _legs = {
-        "--device-leg": lambda a: device_leg(a),
+        "--device-leg": device_leg,
         "--micro": lambda a: micro_leg(),
-        "--metrics-overhead": lambda a: metrics_overhead_leg(a),
-        "--profile-overhead": lambda a: profile_overhead_leg(a),
-        "--lineage-overhead": lambda a: lineage_overhead_leg(a),
+        "--metrics-overhead": metrics_overhead_leg,
+        "--profile-overhead": profile_overhead_leg,
+        "--lineage-overhead": lineage_overhead_leg,
         "--zipf": lambda a: zipf_leg(int(a)),
         "--zipf-ii": lambda a: zipf_ii_leg(int(a)),
         "--sort": lambda a: sort_leg(int(a)),
+        "--slow-disk-leg": slow_disk_leg,
+        "--slow-dispatch-leg": slow_dispatch_leg,
     }
-    if _sort_leg and not _argv:
-        try:
-            sort_leg_main()
-        except SystemExit:
-            raise
-        except BaseException as e:  # one JSON line, like the main harness
-            print(json.dumps({
-                "metric": "global sort over Zipf corpus",
-                "unit": "s", "value": None,
-                "error": f"sort-leg harness: {e!r}",
-            }))
-            raise SystemExit(1)
-    elif len(_argv) == 2 and _argv[0] in _legs:
+    _is_leg = len(_argv) == 2 and _argv[0] in _legs
+    if _argv and not _is_leg:
+        raise SystemExit(f"bench_torch.py: unknown arguments {_argv}")
+    _sweep = next(((spec, fn, label) for spec, fn, label in _sweeps if spec), None)
+    if _sort_leg:
+        _one_line(sort_leg_main, {"metric": "global sort over Zipf corpus",
+                                  "unit": "s", "value": None}, "sort-leg")
+    elif _model_leg:
+        _one_line(model_leg, {"metric": "mrmodel exploration, lease+pipeline foci",
+                              "unit": "schedules/s", "value": None}, "model-leg")
+    elif _service_leg:
+        _one_line(service_sched_ab if _sched_ab else service_leg,
+                  {"metric": "job service: K mixed submissions, jobs/minute",
+                   "unit": "jobs/min", "ok": False, "value": None}, "service-leg")
+    elif _chaos:
+        _one_line(chaos_legs, {"metric": "chaos matrix: seeded fault recovery",
+                               "unit": "s", "ok": False, "scenarios": None}, "chaos")
+    elif _sweep:
+        _one_line(lambda: _sweep[1](_sweep[0]),
+                  {"metric": _sweep[2], "unit": "GB/s", "value": None, "sweep": None},
+                  "sweep", catch_exit=True)
+    elif _dispatch_ab:
+        _one_line(dispatch_ab_pair, {"metric": "zipf dispatch-plane A/B",
+                                     "unit": "x", "value": None}, "dispatch-ab")
+    elif _is_leg:
         _legs[_argv[0]](_argv[1])
-    elif _argv:
-        # bench.py's other modes (the service leg, chaos, the sweeps, the
-        # dispatch A/B, the model leg) and its flags are not ported yet.
-        raise SystemExit(f"bench_torch.py: unknown arguments {_argv} (bench.py's "
-                         "other modes are not ported)")
     else:
-        try:
-            main()
-        except SystemExit:
-            raise
-        except BaseException as e:  # the JSON line survives ANY failure
-            print(json.dumps({
-                "metric": "word_count GB/s end-to-end",
-                "value": None, "unit": "GB/s", "vs_baseline": None,
-                "error": f"bench harness: {e!r}",
-            }))
-            raise SystemExit(1)
+        _one_line(main, {"metric": "word_count GB/s end-to-end", "value": None,
+                         "unit": "GB/s", "vs_baseline": None}, "bench")

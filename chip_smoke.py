@@ -22,6 +22,24 @@ one JSON line; any failure raises and ends the run:
               manifest naming the card, and the leg's kernel builds
               (made in its warm-up) counted, none of them in the measured
               run's "compile" block;
+   bench-modes — bench_torch.py's other modes, each in its subprocess:
+              ``--chaos`` (the seeded fault matrix over a coordinator and
+              two device-engine workers on the card: every leg recovered,
+              bit-identical and run_check clean, the fault-free baselines
+              with no lease expiry; the slow-disk and slow-dispatch pairs
+              on the host engine fired, identical, on cuda, each hiding
+              its delay), ``--sched-ab`` on 4 documents at 2 copies (both
+              sides: every job done, K-3 cache hits, run_check clean),
+              ``--model-leg``, ``--sweep-host-workers 1,4`` (host engine)
+              and ``--sweep-spill-budget 131072,524288`` (device engine) at
+              16 MB, and one ``--dispatch-ab`` repeat at 16 MB, these five
+              together after the matrix, each in a BENCH_DIR of its own
+              (their times are contended: PERF.md quotes them run alone). Every
+              worker manifest names the card, holds only library hits and
+              counts one tokenize_hash launch per one-chunk map task it
+              was granted (none for a cache hit); each sweep leg's run
+              manifest counts one per chunk on the device engine, none on
+              the host engine;
 3. kernel   — both entries of the scan kernel, hash_scan and the fused
               tokenize_hash (last_is_boundary True and False), held bit for
               bit against their plain versions on the card at the main
@@ -35,7 +53,8 @@ one JSON line; any failure raises and ends the run:
               normalize_native and coalesce_updates_into held against their
               plain Python versions on a 4 MiB slice of the Zipf corpus and
               of the unicode text corpus;
-5. main     — a seeded 256 MiB Zipf corpus (4 files) through run_job with
+5. main     — a seeded 128 MiB Zipf corpus (4 files; cut from 256 MiB to
+              make room for bench-modes) through run_job with
               the default Config (device engine, 4 MiB chunks, 2^21-key
               state), reduce_n=8, every output line checked against the
               generator's counts;
@@ -56,14 +75,14 @@ one JSON line; any failure raises and ends the run:
               main's (the three switches' tax, reported, not gated);
 6. evict    — merge_capacity=2^18 (on 64 MiB, see host-evict), so evicted tails
               flow to the host accumulator on every merge; exact as well;
-7. host     — zipf-256M through the host-map engine
+7. host     — zipf-128M through the host-map engine
               (map_engine="host", default host Config: auto workers and
               shards, async dispatch, coalescing); exact, no scan kernel
               launched, the native scan's arenas live;
 8. host-evict — the host engine with merge_capacity=2^18, no coalescing,
               sync dispatch: the pinned stager's event barrier on every
               merge; exact, keys spilled. It and evict run after the apps,
-              on documents 0-1 of zipf-ii-256M (64 MiB, cut from zipf-256M
+              on documents 0-1 of zipf-ii-256M (64 MiB, cut from the main corpus
               to make room for the mesh phases);
 9. ii       — a seeded 256 MiB Zipf corpus in 8 documents (the generator
               of the reference bench's inverted-index leg); its documents
@@ -72,12 +91,12 @@ one JSON line; any failure raises and ends the run:
               Config: every posting list equal to its row of the
               generator's presence matrix; evictions cut posting sets,
               the host unions them;
-   ii-host  — the same job on the host engine with a 2^18-key state and
-              16 MiB windows;
+   ii-host  — inverted_index on documents 0-1 on the host engine with a
+              2^18-key state and 16 MiB windows;
    grep     — grep on the device engine over documents 0-3, for the words
               of five ranks and one word outside the vocabulary: each line
               equal to the presence row, no line for an absent word;
-   join     — join on the host engine, corpus a = documents 0-1, b = 2-3:
+   join     — join on the host engine, corpus a = document 0, b = 2:
               for every rank on both sides exactly the cross product of
               its relative doc ids;
    top_k    — top_k (k = 20) on the device engine over documents 0-1,
@@ -108,7 +127,7 @@ one JSON line; any failure raises and ends the run:
               skew and the splitter pre-pass reported;
 11. spill tiers — the bounded-memory tiers and the streaming merge-join
               egress, each exact against its generator's truth:
-   spill      — zipf-256M word_count on the device engine, merge_capacity
+   spill      — zipf-128M word_count on the device engine, merge_capacity
               2^18, host_accum_budget_mb 16, dictionary_budget_words 2^19:
               both tiers write runs;
    spill-host — the same corpus under the reference bench's ``_zipf_cfg``
@@ -129,13 +148,13 @@ one JSON line; any failure raises and ends the run:
               stream, all_to_all_s, device_wait_s, wire bytes, replays and
               mesh_shard_rows, each launching tokenize_hash once per shard
               per round:
-   mesh       — zipf-256M, default Config, mesh_shape 4: exact and each
+   mesh       — zipf-128M, default Config, mesh_shape 4: exact and each
               mr-{r}.txt byte-identical to main's;
    sharded    — the same with sharded_stream (each 16 MiB window cut into
               four shards anywhere, the halo repairing the seams): exact,
               byte-identical to main's, no halo truncation, forced group
               cuts reported;
-   mesh-ii    — inverted_index on documents 0-3 of zipf-ii-256M against
+   mesh-ii    — inverted_index on documents 0-1 of zipf-ii-256M against
               the presence matrix (the distinct op through the shuffle);
    mesh-replay — documents 0-1 of zipf-ii-256M in 1 MiB chunks, the
               partial capacity at the median of the groups' largest
@@ -144,7 +163,8 @@ one JSON line; any failure raises and ends the run:
    mesh-topk  — top_k (k = 20) on documents 0-1: exact, and the driver's
               log shows the per-shard selection was taken;
    mesh-ckpt  — ``run --mesh 4 --checkpoint-every 1`` through the CLI on
-              documents 0-1, SIGKILLed once driver.ckpt.npz exists, then
+              document 0, SIGKILLed once
+              driver.ckpt.npz exists, then
               ``--resume``: exact, and the resumed process's manifest
               counts 4 launches per round it ran, for the groups after
               the checkpoint;
@@ -174,8 +194,9 @@ one JSON line; any failure raises and ends the run:
               durations from job_report.json and peak device memory;
     cluster-kill — word_count through the CLI in subprocesses on
               documents 0-1 of zipf-ii-256M (64 MiB in 2 files: map_n 2,
-              reduce_n 8; a cut from zipf-256M that keeps the script near
-              half its time limit) with ``coordinator --worker-n 2`` and
+              reduce_n 8; a cut from zipf-128M that keeps the script near
+              half its time limit; a 2 s lease checked every 0.3 s) with
+              ``coordinator --worker-n 2`` and
               two ``worker --engine device``, one worker with ``--chaos
               'kill:map:*'``: it
               SIGKILLs itself on its first map task while holding the
@@ -185,8 +206,8 @@ one JSON line; any failure raises and ends the run:
 14. service — the multi-tenant job service in this process: a port
               JobService.serve() (service_max_jobs 3, in-flight budget
               1024 MiB) and two ServiceWorker(engine="device") as asyncio
-              tasks; three jobs at once on documents 0-1 of zipf-ii-256M
-              (64 MiB each) — word_count (reduce_n 8),
+              tasks; three jobs at once on document 0 of zipf-ii-256M
+              (32 MiB each) — word_count (reduce_n 8),
               inverted_index and grep with the grep phase's query — each exact
               against its truth, no re-execution, tokenize_hash launched
               once per map-task chunk of the three jobs; then the
@@ -252,7 +273,7 @@ SCAN_OPS_PER_BYTE = 10
 ZIPF_VOCAB = 1 << 21
 ZIPF_S = 1.05
 ZIPF_SEED = 20260730
-ZIPF_BYTES = 256 << 20
+ZIPF_BYTES = 128 << 20
 ZIPF_FILES = 4
 #: The inverted-index corpus: the reference bench's zipf-ii leg
 #: (bench.py:345-398), 8 documents, its own seed.
@@ -629,13 +650,15 @@ def write_ii_corpus(dirpath: pathlib.Path):
     """The zipf-ii corpus (bench.py:345-398): II_DOCS documents doc-{d}.txt
     of (II_BYTES // (8 * II_DOCS) + 1) tokens each, seed II_SEED. Returns
     (presence bool [ZIPF_VOCAB, II_DOCS], counts of documents 0-1 per
-    rank) — the ground truth of every app phase on it."""
+    rank, counts of document 0 per rank) — the ground truth of every app
+    phase on it."""
     import numpy as np
 
     rng = np.random.default_rng(II_SEED)
     cdf, table = _zipf_sampler()
     presence = np.zeros((ZIPF_VOCAB, II_DOCS), dtype=bool)
     counts01 = np.zeros(ZIPF_VOCAB, dtype=np.int64)
+    counts0 = np.zeros(ZIPF_VOCAB, dtype=np.int64)
     per_doc = II_BYTES // (8 * II_DOCS) + 1
     for d in range(II_DOCS):
         def on_block(ranks, d=d):
@@ -643,10 +666,12 @@ def write_ii_corpus(dirpath: pathlib.Path):
             presence[:, d] |= c > 0
             if d < 2:
                 counts01[:] += c
+            if d == 0:
+                counts0[:] += c
 
         with open(dirpath / f"doc-{d}.txt", "wb") as f:
             _write_tokens(f, rng, cdf, table, per_doc, on_block)
-    return presence, counts01
+    return presence, counts01, counts0
 
 
 def _line_table(files):
@@ -1058,7 +1083,7 @@ def profile_summary(manifest: dict) -> dict:
 
 
 def phase_prof(work: pathlib.Path, corpus: pathlib.Path, truth, main_run: dict) -> dict:
-    """zipf-256M through run_job on the device engine with the main phase's
+    """zipf-128M through run_job on the device engine with the main phase's
     Config and the three observability switches on: the sampling profiler,
     ``profile_dir`` (a torch.profiler trace with CUDA activity) and the
     lineage ledger, plus a trace and a manifest. Exact, byte-identical to
@@ -1240,20 +1265,45 @@ BENCH_ENV = {"BENCH_TARGET_MB": "16", "BENCH_BASELINE_MB": "16", "BENCH_ZIPF_MB"
              "BENCH_OVERHEAD_RUNS": "1", "BENCH_SORT_MB": "8"}
 
 
-def _bench_line(work: pathlib.Path, args: list, timeout: int) -> dict:
-    """Run bench_torch.py with BENCH_ENV and BENCH_DIR in the work dir; its
-    exit code must be 0 and its one stdout line parse."""
+def _bench_start(bench_dir: pathlib.Path, args: list, **extra) -> tuple:
+    """Start bench_torch.py with BENCH_ENV (and ``extra``) and BENCH_DIR
+    ``bench_dir``, its stdout and stderr in files there: (process, args,
+    stdout path, stderr path)."""
     import os
 
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env.update(BENCH_ENV, BENCH_DIR=str(work / "bench"))
-    r = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), *args],
-                       capture_output=True, text=True, timeout=timeout, cwd=ROOT, env=env)
-    lines = r.stdout.strip().splitlines()
-    check(r.returncode == 0 and len(lines) == 1,
-          f"bench {args}: exit {r.returncode}, stdout {r.stdout[-1500:]}\n"
-          f"{r.stderr[-2500:]}")
+    env.update(BENCH_ENV, BENCH_DIR=str(bench_dir), **extra)
+    bench_dir.mkdir(parents=True, exist_ok=True)
+    files = (bench_dir / f"{args[0].lstrip('-')}.out", bench_dir / f"{args[0].lstrip('-')}.err")
+    with open(files[0], "w") as out, open(files[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "bench_torch.py"), *args],
+                                stdout=out, stderr=err, text=True, cwd=ROOT, env=env)
+    return (proc, args, *files)
+
+
+def _bench_result(started: tuple, deadline: float) -> dict:
+    """Wait for a bench_torch.py started by _bench_start until ``deadline``
+    (time.monotonic()); its exit code must be 0 and its one stdout line
+    parse."""
+    proc, args, out_path, err_path = started
+    try:
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    stdout, stderr = out_path.read_text(), err_path.read_text()
+    lines = stdout.strip().splitlines()
+    check(rc == 0 and len(lines) == 1,
+          f"bench {args}: exit {rc}, stdout {stdout[-1500:]}\n{stderr[-2500:]}")
     return json.loads(lines[0])
+
+
+def _bench_line(work: pathlib.Path, args: list, timeout: int, **extra) -> dict:
+    """Run bench_torch.py with BENCH_ENV (and ``extra``) and BENCH_DIR in
+    the work dir to its end; see _bench_result."""
+    return _bench_result(_bench_start(work / "bench", args, **extra),
+                         time.monotonic() + timeout)
 
 
 def phase_bench(work: pathlib.Path) -> dict:
@@ -1307,6 +1357,141 @@ def phase_bench(work: pathlib.Path) -> dict:
            "overhead_frac": {k: line[k]["frac"] for k in (
                "metrics_overhead", "profile_overhead", "lineage_overhead")},
            "doctor": line["doctor"].get("bottleneck"), "sort_wall_s": sort["sort_wall_s"]}
+    emit(out)
+    return out
+
+
+#: bench_torch.py's other modes at the bench-modes phase's sizes: the sched
+#: A/B on 4 documents per corpus at 2 copies of each text (the reference
+#: bench's 12 and 8), one dispatch A/B repeat (3).
+BENCH_MODES_ENV = {"BENCH_SCHED_AB_DOCS": "4", "BENCH_SCHED_AB_SCALE": "2",
+                   "BENCH_DISPATCH_AB_REPEATS": "1"}
+
+
+def _fleet_workers(name: str, workers: list, card: str) -> dict:
+    """Each worker manifest of a fleet names the card, built nothing and
+    launched tokenize_hash once per map task it was granted (every
+    document of these fleets is one chunk); returns the sums."""
+    check(workers, f"{name}: no worker manifest")
+    for w in workers:
+        check(w["engine"] == "device" and w["device_name"] == card,
+              f"{name}: a worker ran {w['engine']} on {w['device_name']}")
+        check(w["tokenize_hash"] == w["map_grants"],
+              f"{name}: a worker launched tokenize_hash {w['tokenize_hash']} times "
+              f"for {w['map_grants']} one-chunk map tasks")
+        check((w["kernel_builds"] or {}).get("cache_misses") == 0,
+              f"{name}: a worker built a kernel: {w['kernel_builds']}")
+    return {"tokenize_hash": sum(w["tokenize_hash"] for w in workers),
+            "map_grants": sum(w["map_grants"] for w in workers)}
+
+
+def phase_bench_modes(work: pathlib.Path) -> dict:
+    """bench_torch.py's other modes on the card, each line checked: the
+    chaos matrix (every leg recovered, bit-identical, run_check clean; the
+    fault-free baseline with no lease expiry or re-execution; both slow
+    pairs fired, identical, on cuda), the sched A/B (every job done, K-3
+    cache hits, run_check clean on both sides), the model leg, a two-point
+    integer sweep and a two-point Zipf sweep at 16 MB, and one dispatch
+    A/B repeat, these five together after the chaos matrix. Every worker
+    manifest names the card, and the device workers' tokenize_hash
+    launches equal their map tasks' chunks, none for a cache hit."""
+    import torch
+
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    chaos = _bench_line(work, ["--chaos"], 600, **BENCH_MODES_ENV)
+    seconds = {"chaos": round(time.perf_counter() - t0, 1)}
+    check(chaos["ok"] and chaos["platform"] == "cuda" and chaos["map_engine"] == "device",
+          f"bench --chaos: {json.dumps(chaos)[:3000]}")
+    fleets = {}
+    for r in chaos["scenarios"]:
+        check(r["recovered"] and r["bit_identical"] and r["mrcheck"]["ok"],
+              f"bench --chaos {r['scenario']}: {r}")
+        fleets[r["scenario"]] = _fleet_workers(f"chaos {r['scenario']}", r["workers"], card)
+        if r["scenario"].startswith("baseline"):
+            totals = json.loads((pathlib.Path(r["dir"]) / "work" / "job_report.json")
+                                .read_text())["report"]["totals"]
+            check(all(t["expiries"] == t["re_executions"] == 0 for t in totals.values()),
+                  f"bench --chaos {r['scenario']}: expiries in a fault-free run: {totals}")
+            check(fleets[r["scenario"]]["tokenize_hash"] == 3,
+                  f"bench --chaos {r['scenario']}: {fleets[r['scenario']]}")
+    for pname in ("slow_disk_pair", "slow_dispatch_pair"):
+        pair = chaos[pname]
+        check(pair["fired"] > 0 and pair["outputs_identical"] and pair["platform"] == "cuda"
+              and pair["device_name"] == card, f"bench --chaos {pname}: {pair}")
+
+    # The other modes run together, each in a BENCH_DIR of its own: their
+    # checks are exact, and their times, contended here, are measured alone
+    # by running each mode by itself (PERF.md). The chaos matrix above runs
+    # alone: its walls and the pairs' hidden_s are gated.
+    t = time.perf_counter()
+    group = {tag: _bench_start(work / f"bench-{tag}", args, **BENCH_MODES_ENV)
+             for tag, args in (
+                 ("sched-ab", ["--sched-ab"]), ("model", ["--model-leg"]),
+                 ("sweep-host-workers", ["--sweep-host-workers", "1,4"]),
+                 ("sweep-spill-budget", ["--sweep-spill-budget", "131072,524288"]),
+                 ("dispatch-ab", ["--dispatch-ab"]))}
+    deadline = time.monotonic() + 400
+    res = {tag: _bench_result(started, deadline) for tag, started in group.items()}
+    seconds["together"] = round(time.perf_counter() - t, 1)
+
+    ab = res["sched-ab"]
+    check(ab["ok"] and ab["platform"] == "cuda", f"bench --sched-ab: {json.dumps(ab)[:3000]}")
+    docs = int(BENCH_MODES_ENV["BENCH_SCHED_AB_DOCS"])
+    for side in ("fifo", "pipeline"):
+        r = ab[side]
+        check(r["ok"] and r["completed"] == ab["k_jobs"]
+              and r["cache_hits"] == ab["k_jobs"] - 3 and r["mrcheck"]["ok"],
+              f"bench --sched-ab {side}: {r}")
+        fleets[f"sched-{side}"] = f = _fleet_workers(f"sched-ab {side}", r["workers"], card)
+        check(f["tokenize_hash"] == f["map_grants"] == 3 * docs,
+              f"bench --sched-ab {side}: {f} for 3 computed jobs of {docs} documents")
+
+    model = res["model"]
+    check(model["model_ok"] and model["model_schedules_per_s"] > 0, f"bench --model-leg: {model}")
+
+    sweeps = {}
+    for tag, engine in (("sweep-host-workers", "host"), ("sweep-spill-budget", "device")):
+        sw = res[tag]
+        check(sw["map_engine"] == engine and sw["platform"] == "cuda"
+              and all("error" not in p and p["gbs"] > 0 for p in sw["sweep"]),
+              f"bench {tag}: {sw}")
+        launches = []
+        for p in sw["sweep"]:
+            run = json.loads(pathlib.Path(p["manifest"]).read_text())
+            n = (run.get("kernel_launches") or {}).get("tokenize_hash", 0)
+            check(run["platform"].get("device_name") == card
+                  and n == (run["stats"]["chunks"] if engine == "device" else 0),
+                  f"bench {tag}: {n} launches for {run['stats']['chunks']} chunks on "
+                  f"{run['platform'].get('device_name')}")
+            launches.append(n)
+        sweeps[tag] = {"gbs": [p["gbs"] for p in sw["sweep"]],
+                       "speedup_vs_first": sw["speedup_vs_first"], "launches": launches}
+
+    dab = res["dispatch-ab"]
+    check(dab["value"] is not None and dab["platform"] == "cuda" and "error" not in dab,
+          f"bench --dispatch-ab: {dab}")
+
+    out = {"phase": "bench-modes", "seconds": time.perf_counter() - t0,
+           "mode_seconds": seconds, "card": card, "together": list(group),
+           "chaos": {"baseline_wall_s": chaos["baseline_wall_s"],
+                     "speculation_speedup": chaos["speculation_speedup"],
+                     "scenarios": {r["scenario"]: {"wall_s": r["wall_s"],
+                                                   "recovery_cost_s": r.get("recovery_cost_s")}
+                                   for r in chaos["scenarios"]},
+                     "hidden_s": {k: chaos[k]["hidden_s"]
+                                  for k in ("slow_disk_pair", "slow_dispatch_pair")},
+                     "pairs": {k: {side: chaos[k][side] for side in ("async", "sync")}
+                               for k in ("slow_disk_pair", "slow_dispatch_pair")}},
+           "sched_ab": {"speedup": ab["value"], **{
+               side: {k: ab[side][k] for k in ("value", "wall_s", "queue_wait_p95_s",
+                                                "cache_hit_rate", "fleet_bubble_frac")}
+               for side in ("fifo", "pipeline")}},
+           "model_schedules_per_s": model["model_schedules_per_s"],
+           "model_explored": model["model_explored"], "sweeps": sweeps,
+           "dispatch_ab": {"speedup": dab["value"], "plane_wall_s": dab["plane"]["wall_s"],
+                           "pr10_wall_s": dab["pr10"]["wall_s"]},
+           "launches": fleets}
     emit(out)
     return out
 
@@ -1436,14 +1621,14 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     ii_dir = work / "zipf-ii"
     ii_dir.mkdir()
     t0 = time.perf_counter()
-    presence, counts01 = write_ii_corpus(ii_dir)
+    presence, counts01, counts0 = write_ii_corpus(ii_dir)
     emit({"phase": "corpus", "name": "zipf-ii-256M",
           "bytes": sum(p.stat().st_size for p in ii_dir.iterdir()), "docs": II_DOCS,
           "distinct_words": int(presence.any(axis=1).sum()),
           "posting_pairs": int(presence.sum()), "seed": II_SEED,
           "seconds": time.perf_counter() - t0})
     docs = sorted(ii_dir.glob("doc-*.txt"))
-    subsets = {"left": docs[:4], "top": docs[:2], "mid": docs[2:4]}
+    subsets = {"left": docs[:4], "top": docs[:2], "d0": docs[:1], "d2": docs[2:3]}
     for name, members in subsets.items():
         (work / name).mkdir()
         for path in members:
@@ -1455,16 +1640,16 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
     check(ii["spilled_keys"] > 0, "ii: no posting pairs were evicted")
     runs.append(ii)
     phase_step("step-ii", docs[0], ii, get_app("inverted_index"))
-    runs.append(drive_job("ii-host", work, ii_check(presence[:, :4]),
-                          app=get_app("inverted_index"), corpus=work / "left",
+    runs.append(drive_job("ii-host", work, ii_check(presence[:, :2]),
+                          app=get_app("inverted_index"), corpus=work / "top",
                           map_engine="host", merge_capacity=1 << 18,
                           host_window_bytes=16 << 20))
     runs.append(drive_job(
         "grep", work, grep_check(presence[:, :4], GREP_RANKS, GREP_ABSENT),
         app=get_app("grep", query=GREP_QUERY), corpus=work / "left"))
     runs.append(drive_job(
-        "join", work, join_check(presence[:, :4], 2), app=get_app("join"), map_engine="host",
-        input_dirs=(("a", str(work / "top")), ("b", str(work / "mid")))))
+        "join", work, join_check(presence[:, [0, 2]], 1), app=get_app("join"),
+        map_engine="host", input_dirs=(("a", str(work / "d0")), ("b", str(work / "d2")))))
     runs.append(drive_job("top_k", work, topk_check(counts01, 20), app=get_app("top_k", k=20),
                           corpus=work / "top"))
 
@@ -1479,7 +1664,8 @@ def phase_apps(work: pathlib.Path) -> tuple[list[dict], dict]:
         runs.append(drive_job(name, work, sort_check(truth), app=get_app("sort"),
                               corpus=sort_dir, map_engine=engine))
     return runs, {"ii_dir": ii_dir, "presence": presence, "counts01": counts01,
-                  "top_dir": work / "top", "left_dir": work / "left"}
+                  "counts0": counts0, "top_dir": work / "top", "left_dir": work / "left",
+                  "d0_dir": work / "d0"}
 
 
 def phase_spill(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
@@ -1559,7 +1745,7 @@ class _LogRecords(logging.Handler):
 
 def phase_mesh(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> list[dict]:
     """The single-process mesh (parallel/shuffle.py), MESH_SHARDS shards on
-    the one card: zipf-256M through the chunked mesh and the halo-sharded
+    the one card: zipf-128M through the chunked mesh and the halo-sharded
     stream, each exact and byte-identical to the main phase's files;
     inverted_index on zipf-ii-256M; both replay tiers and the top-k
     selection on documents 0-1. Each launches tokenize_hash once per shard
@@ -1583,8 +1769,8 @@ def phase_mesh(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> li
     sharded = drive_job("sharded", work, identical("sharded"), corpus=corpus,
                         mesh_shape=MESH_SHARDS, sharded_stream=True)
     runs.append(sharded)
-    runs.append(drive_job("mesh-ii", work, ii_check(ctx["presence"][:, :4]),
-                          app=get_app("inverted_index"), corpus=ctx["left_dir"],
+    runs.append(drive_job("mesh-ii", work, ii_check(ctx["presence"][:, :2]),
+                          app=get_app("inverted_index"), corpus=ctx["top_dir"],
                           mesh_shape=MESH_SHARDS))
     t0 = time.perf_counter()
     cap, maxes = _replay_capacity(ctx["top_dir"], REPLAY_CHUNK)
@@ -1620,8 +1806,8 @@ def phase_mesh(work: pathlib.Path, corpus: pathlib.Path, truth, ctx: dict) -> li
 
 
 def phase_mesh_ckpt(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
-    """The CLI's ``run --mesh 4 --checkpoint-every 1`` on documents 0-1 of
-    zipf-ii-256M, SIGKILLed as soon as its first checkpoint is on disk,
+    """The CLI's ``run --mesh 4 --checkpoint-every 1`` on document 0 of
+    zipf-ii-256M (two groups), SIGKILLed as soon as its first checkpoint is on disk,
     then ``--resume``: exact, and the resumed process's manifest counts one
     tokenize_hash launch per shard per round it ran, the rounds of the
     groups after the checkpoint."""
@@ -1927,8 +2113,11 @@ def phase_cluster_kill(work: pathlib.Path, corpus: pathlib.Path, truth) -> dict:
     out_dir, work_dir = work / "kill-out", work / "kill-work"
     logs = work / "kill-logs"
     logs.mkdir()
+    # A 2 s lease checked every 0.3 s: the victim's task expires in
+    # seconds, not the default's 5 + 5.
     common = ["--input", str(corpus), "--output", str(out_dir), "--work", str(work_dir),
-              "--port", str(_free_port()), "--reduce-n", "8"]
+              "--port", str(_free_port()), "--reduce-n", "8", "--lease-timeout", "2.0",
+              "--lease-check-period", "0.3", "--renew-period", "0.3"]
     manifest = ["--manifest", str(logs / "manifest.json")]
     cli = [sys.executable, "-m", "mapreduce_rust_tpu_torch"]
     cmds = {"coordinator": [*cli, "coordinator", "--worker-n", "2", *common],
@@ -2003,7 +2192,7 @@ def _job_totals(work_dir: pathlib.Path, jid: str) -> dict:
 def phase_service(work: pathlib.Path, ctx: dict) -> dict:
     """The multi-tenant job service in this process: a port JobService.serve()
     and two ServiceWorker(engine="device") as asyncio tasks, three jobs at
-    once on documents 0-1 of zipf-ii-256M (word_count, inverted_index and
+    once on document 0 of zipf-ii-256M (word_count, inverted_index and
     grep), each exact against its generator's truth; then
     the word_count spec again, which the result cache must serve with zero
     new grants."""
@@ -2020,20 +2209,20 @@ def phase_service(work: pathlib.Path, ctx: dict) -> dict:
 
     out_dir, work_dir = work / "service-out", work / "service-work"
     cfg = Config(port=_free_port(), service_max_jobs=3, service_inflight_budget_mb=1024,
-                 input_dir=str(ctx["top_dir"]), output_dir=str(out_dir),
+                 input_dir=str(ctx["d0_dir"]), output_dir=str(out_dir),
                  work_dir=str(work_dir))
     presence = ctx["presence"]
     jobs = {
-        "word_count": ({"app": "word_count", "input_dir": str(ctx["top_dir"]), "reduce_n": 8},
+        "word_count": ({"app": "word_count", "input_dir": str(ctx["d0_dir"]), "reduce_n": 8},
                        lambda files: {"output_lines": check_zipf_outputs(
-                           files, ctx["counts01"])}),
-        "inverted_index": ({"app": "inverted_index", "input_dir": str(ctx["top_dir"]),
+                           files, ctx["counts0"])}),
+        "inverted_index": ({"app": "inverted_index", "input_dir": str(ctx["d0_dir"]),
                             "reduce_n": 8},
-                           lambda files: ii_check(presence[:, :2])(
+                           lambda files: ii_check(presence[:, :1])(
                                types.SimpleNamespace(output_files=files))),
-        "grep": ({"app": "grep", "input_dir": str(ctx["top_dir"]), "reduce_n": 8,
+        "grep": ({"app": "grep", "input_dir": str(ctx["d0_dir"]), "reduce_n": 8,
                   "app_args": {"query": list(GREP_QUERY)}},
-                 lambda files: grep_check(presence[:, :2], GREP_RANKS, GREP_ABSENT)(
+                 lambda files: grep_check(presence[:, :1], GREP_RANKS, GREP_ABSENT)(
                      types.SimpleNamespace(output_files=files))),
     }
     svc = JobService(cfg)
@@ -2309,6 +2498,7 @@ def main() -> int:
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     try:
         bench = phase_bench(work)
+        bench_modes = phase_bench_modes(work)
         corpus = work / "zipf"
         corpus.mkdir()
         t0 = time.perf_counter()
@@ -2342,7 +2532,7 @@ def main() -> int:
         phase_prof_cli(work, phase_calibrate(work))
         spill_runs = phase_spill(work, corpus, truth, ctx)
         mesh_runs = phase_mesh(work, corpus, truth, ctx)
-        ckpt_run = phase_mesh_ckpt(work, ctx["top_dir"], ctx["counts01"])
+        ckpt_run = phase_mesh_ckpt(work, ctx["d0_dir"], ctx["counts0"])
         mh_runs = phase_multihost(work, ctx)
         cluster_run = phase_cluster(work, ctx["top_dir"], ctx["counts01"])
         phase_cluster_kill(work, ctx["top_dir"], ctx["counts01"])
@@ -2382,7 +2572,11 @@ def main() -> int:
                           "chunks": 2 * drain_run["chunks_per_job"],
                           "counted_in": "the workers' manifests"},
         "bench": {"tokenize_hash": bench["launches"], "chunks": bench["chunks"],
-                  "counted_in": "each bench leg's process"}})
+                  "counted_in": "each bench leg's process"},
+        "bench-modes": {"fleets": bench_modes["launches"], "sweeps": {
+            k: v["launches"] for k, v in bench_modes["sweeps"].items()},
+            "counted_in": "each worker's manifest (= its one-chunk map tasks) and "
+                          "each sweep leg's run manifest"}})
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

@@ -61,6 +61,16 @@ def record_build(tool: str, source: str, cache: str, t0: float, t1: float) -> No
                           "source": source, "t0": t0, "t1": t1})
 
 
+def build_totals(records: list[dict]) -> dict:
+    """Count, seconds and hit/miss split of some :data:`BUILD_LOG` records."""
+    return {
+        "count": len(records),
+        "total_s": round(sum(r["dur_s"] for r in records), 6),
+        "cache_hits": sum(r["cache"] == "hit" for r in records),
+        "cache_misses": sum(r["cache"] == "miss" for r in records),
+    }
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:

@@ -981,6 +981,11 @@ class Worker:
                 from mapreduce_rust_tpu_torch.ops.tokenize_cuda import tokenize_hash
 
                 extra["kernel_launches"] = {"tokenize_hash": tokenize_hash.launches}
+            # The library builds and loads of this PROCESS: a fleet started
+            # after the libraries were built shows hits only.
+            from mapreduce_rust_tpu_torch.ops.cuda_build import BUILD_LOG, build_totals
+
+            extra["kernel_builds"] = build_totals(list(BUILD_LOG))
             if self.revoked_tasks:
                 extra["revoked_tasks"] = self.revoked_tasks
             if self.chaos is not None:

@@ -11,7 +11,8 @@ the CPU would quadruple the test's CPU time. A ``jax`` package that
 records its import and raises stands first on the subprocesses' path, so
 a stray import fails the test in whichever leg makes it. The corpora must be the
 reference bench's byte for byte, and without a card the line carries no
-number and names why."""
+number and names why; the other modes without a card start no process.
+``tests/test_torch_bench_modes.py`` holds the other modes themselves."""
 
 import json
 import os
@@ -157,7 +158,35 @@ def test_device_engine_is_the_default(monkeypatch):
     assert bench_torch.DEVICE == os.environ.get("BENCH_DEVICE", "cuda")
 
 
-def test_unported_modes_are_refused():
-    r = subprocess.run([sys.executable, str(REPO_ROOT / "bench_torch.py"), "--chaos"],
-                       capture_output=True, text=True, timeout=60, cwd=str(REPO_ROOT))
-    assert r.returncode != 0 and "not ported" in r.stderr
+@pytest.mark.parametrize("args,keys", [
+    (["--chaos"], {"ok": False, "scenarios": None}),
+    (["--service-leg"], {"ok": False, "value": None}),
+    (["--dispatch-ab"], {"value": None}),
+    (["--sweep-spill-budget", "131072,262144"], {"value": None, "sweep": None}),
+])
+def test_modes_without_a_card_start_nothing(args, keys, tmp_path, poisoned_path):
+    """A mode that needs the card checks for it before it starts a
+    process: one line with no number and an error naming the card, exit
+    1, and nothing built or run on the CPU."""
+    root, marker = poisoned_path
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "MR_")) and k != "PYTHONPATH"}
+    env.update(BENCH_DIR=str(tmp_path), PYTHONPATH=str(root), CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(REPO_ROOT / "bench_torch.py"), *args],
+                       capture_output=True, text=True, timeout=120, env=env,
+                       cwd=str(REPO_ROOT))
+    lines = [line for line in r.stdout.splitlines() if line.strip()]
+    assert r.returncode == 1 and len(lines) == 1, (r.stdout, r.stderr[-2000:])
+    line = json.loads(lines[0])
+    assert {k: line.get(k) for k in keys} == keys
+    assert "no CUDA device" in line["error"]
+    assert not any(tmp_path.iterdir()), list(tmp_path.iterdir())
+    assert not marker.exists()
+
+
+def test_unknown_arguments_are_refused():
+    r = subprocess.run([sys.executable, str(REPO_ROOT / "bench_torch.py"), "--chaos",
+                        "--no-such-flag"], capture_output=True, text=True, timeout=60,
+                       cwd=str(REPO_ROOT))
+    assert r.returncode != 0 and not r.stdout
+    assert "unknown arguments ['--no-such-flag']" in r.stderr
