@@ -2554,6 +2554,34 @@ def _card(dev) -> dict:
     return card
 
 
+def _lint_counts() -> dict:
+    """Run the port's torch-free mrlint analyzer and reduce its JSON report
+    to the counts a bench trajectory diffs (a regressing rule shows up in
+    the manifest) — bench.py's block, from the port's linter. Best effort:
+    a broken linter is itself a recorded fact, never a lost bench."""
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "mapreduce_rust_tpu_torch", "lint",
+             "--format", "json"],
+            capture_output=True, text=True, timeout=120, cwd=str(REPO),
+        )
+        doc = json.loads(r.stdout)
+        return {
+            "ok": doc.get("ok"),
+            "exit_code": r.returncode,
+            "findings": len(doc.get("findings", [])),
+            "files_checked": doc.get("files_checked"),
+            "rules": len(doc.get("rules", [])),
+            "suppressed_inline": doc.get("suppressed_inline"),
+            "suppressed_baseline": doc.get("suppressed_baseline"),
+            "unused_baseline_entries": len(
+                doc.get("unused_baseline_entries", [])
+            ),
+        }
+    except Exception as e:
+        return {"error": repr(e)}
+
+
 def _write_bench_manifest(result: dict, dev, base_gbs) -> None:
     """One manifest.json per bench run — config, platform, card, git rev,
     the measured leg's full JobStats, probe outcomes — so later rounds read
@@ -2580,9 +2608,7 @@ def _write_bench_manifest(result: dict, dev, base_gbs) -> None:
                 "kind": "bench_manifest",
                 "app": "word_count",
                 "result": result,
-                # The port has no lint command yet; bench.py's block is the
-                # reference package's lint counts.
-                "lint": None,
+                "lint": _lint_counts(),
                 "card": _card(dev),
                 "cpu_baseline_gbs": round(base_gbs, 4) if base_gbs else None,
                 # NOT trace_path: every traced leg (median repeats) rewrites

@@ -1341,6 +1341,10 @@ def phase_bench(work: pathlib.Path) -> dict:
         check(leg["launches"] == leg["chunks"] > 0,
               f"bench {name}: {leg['launches']} launches for {leg['chunks']} chunks")
         check(leg.get("outputs_identical", True), f"bench {name}: outputs differ")
+    # The manifest's lint block: the port's linter over the checkout, clean.
+    lint = json.loads(manifest.read_text()).get("lint") or {}
+    check(lint.get("ok") is True and lint.get("findings") == 0,
+          f"bench: the manifest's lint block is {lint}")
     bench_s = time.perf_counter() - t0
     sort = _bench_line(work, ["--sort-leg"], timeout=200)
     check(sort["sort_exact"] and sort["sort_launches"] == sort["sort_chunks"] > 0,
@@ -1356,7 +1360,8 @@ def phase_bench(work: pathlib.Path) -> dict:
            "micro": line["device_micro"], "zipf_wall_s": line["zipf"]["wall_s"],
            "overhead_frac": {k: line[k]["frac"] for k in (
                "metrics_overhead", "profile_overhead", "lineage_overhead")},
-           "doctor": line["doctor"].get("bottleneck"), "sort_wall_s": sort["sort_wall_s"]}
+           "doctor": line["doctor"].get("bottleneck"), "sort_wall_s": sort["sort_wall_s"],
+           "lint": lint}
     emit(out)
     return out
 

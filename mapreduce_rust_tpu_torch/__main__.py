@@ -2,7 +2,7 @@
 ``service``, ``submit``, ``jobs``, ``merge`` and ``clean`` subcommands of
 ``python -m mapreduce_rust_tpu`` and its analysis commands (``stats``,
 ``doctor``, ``trace``, ``watch``, ``prof``, ``lineage``, ``fleet``,
-``check``, ``model``), with
+``check``, ``model``, ``lint``), with
 the reference's flags for the fields this package implements:
 
     python -m mapreduce_rust_tpu_torch run --input DIR --output DIR --work DIR
@@ -39,6 +39,8 @@ the reference's flags for the fields this package implements:
     python -m mapreduce_rust_tpu_torch check WORK [--trace T] [--format json]
     python -m mapreduce_rust_tpu_torch model [--focus {lease,pipeline,service}]
         [--budget N] [--depth N] [--seed S] [--mutate CLASS]
+    python -m mapreduce_rust_tpu_torch lint [PATH ...] [--format json]
+        [--baseline B [--strict-baseline]] [--check-trace T]
 
 Every job command takes ``--trace PATH`` and ``--manifest PATH``; the
 coordinator, the service and the workers suffix them per process.
@@ -730,6 +732,17 @@ def cmd_fleet(args) -> int:
     return run_cli(args)
 
 
+def cmd_lint(args) -> int:
+    """mrlint: the framework-invariant static analyzer (analysis/lint.py,
+    rules.py, dataflow.py). Pure ast + stdlib — torch-free like every
+    analysis command, so it runs in any process in milliseconds;
+    tests/test_torch_lint_clean.py gates tier-1 on exit 0. Exit 0 clean,
+    1 findings, 2 config error."""
+    from mapreduce_rust_tpu_torch.analysis.lint import run_cli
+
+    return run_cli(args)
+
+
 def cmd_check(args) -> int:
     """mrcheck: protocol conformance + happens-before race detection over
     a run's control-plane artifacts (journal, job report, merged trace).
@@ -974,6 +987,34 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("clean", help="remove intermediates and outputs")
     _add_common(p)
     p.set_defaults(fn=cmd_clean)
+
+    p = sub.add_parser(
+        "lint",
+        help="mrlint: framework-invariant static analysis of the source tree",
+    )
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs to lint (default: the installed package, "
+                   "tests/, bench_torch.py and __graft_entry_torch__.py)")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="json: one machine-readable document (findings + "
+                   "suppression accounting) for CI diffs")
+    p.add_argument("--baseline", default=None, metavar="PATH",
+                   help="suppression file (.mrlint.json is auto-loaded from "
+                   "the CWD when present): {\"suppressions\": [{\"rule\", "
+                   "\"path\", \"reason\"}]} — every entry needs a reason")
+    p.add_argument("--check-trace", default=None, metavar="TRACE",
+                   dest="check_trace",
+                   help="validate a written Chrome trace file instead of "
+                   "linting source (span nesting, B/E balance, counter "
+                   "value types)")
+    p.add_argument("--strict-baseline", action="store_true",
+                   dest="strict_baseline",
+                   help="promote unused baseline entries from a warning to "
+                   "exit 1 — stale suppressions must not accumulate (an "
+                   "unused entry will happily swallow a real finding at "
+                   "that path later)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_lint)
 
     p = sub.add_parser(
         "fleet",

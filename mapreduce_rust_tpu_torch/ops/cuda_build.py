@@ -116,7 +116,8 @@ def build(source: str) -> Build:
 
 def build_all(sources: list[str]) -> list[Build]:
     """One nvcc per source, all started together."""
-    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1),
+                            thread_name_prefix="mr/nvcc") as pool:
         return list(pool.map(build, sources))
 
 

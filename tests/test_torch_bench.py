@@ -100,7 +100,10 @@ def test_bench_prints_contract_line_on_cpu(bench_dir, poisoned_path):
     assert "compile" not in run["stats"]
     assert line["kernel_builds"]["count"] >= 1
     manifest = json.loads((bench_dir / "manifest.json").read_text())
-    assert manifest["kind"] == "bench_manifest" and manifest["lint"] is None
+    assert manifest["kind"] == "bench_manifest"
+    # The port's linter over the repo: clean, with the reference's 24 rules.
+    assert manifest["lint"]["ok"] is True and manifest["lint"]["findings"] == 0
+    assert manifest["lint"]["exit_code"] == 0 and manifest["lint"]["rules"] == 24
     assert manifest["result"] == line
     history = (bench_dir / "history.jsonl").read_text().splitlines()
     assert json.loads(history[-1])["value"] == line["value"]

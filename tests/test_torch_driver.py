@@ -230,6 +230,8 @@ from mapreduce_rust_tpu_torch.__main__ import main as cli_main
 assert cli_main(["prof", sys.argv[2] + "/pm.json", "--roofline", "--machine",
                  sys.argv[2] + "/machine.json"]) == 0
 assert cli_main(["lineage", sys.argv[2] + "/pw", "--forward", "0"]) == 0
+# mrlint over the port's tree: clean, and torch-free like the other tools.
+assert cli_main(["lint"]) == 0
 # The task path and the observability core: a one-worker cluster on the
 # device engine, traced, with a manifest.
 import asyncio
