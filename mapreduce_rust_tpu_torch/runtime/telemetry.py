@@ -32,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 from mapreduce_rust_tpu_torch.runtime.histogram import Histogram
@@ -924,7 +925,7 @@ def build_manifest(cfg, stats=None, app_name: str | None = None,
 def write_manifest(path: str, manifest: dict) -> str:
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=2, sort_keys=True)
     os.replace(tmp, path)

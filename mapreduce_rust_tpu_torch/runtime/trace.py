@@ -339,7 +339,7 @@ class Tracer:
                     pass  # the recorder must never fail the run
             d = os.path.dirname(os.path.abspath(path))
             os.makedirs(d, exist_ok=True)
-            tmp = f"{path}.{self._pid}.tmp"
+            tmp = f"{path}.{self._pid}.{threading.get_ident()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(body, f, separators=(",", ":"))
             os.replace(tmp, path)
@@ -366,7 +366,7 @@ class Tracer:
             validate_events(self.events())
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
-        tmp = f"{path}.{self._pid}.tmp"
+        tmp = f"{path}.{self._pid}.{threading.get_ident()}.tmp"
         with open(tmp, "w") as f:
             json.dump(
                 {
@@ -827,7 +827,7 @@ def merge_traces(out_path: str, paths: "list[str]",
     elif out_format == "json":
         d = os.path.dirname(os.path.abspath(out_path))
         os.makedirs(d, exist_ok=True)
-        tmp = f"{out_path}.{os.getpid()}.tmp"
+        tmp = f"{out_path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "w") as f:
             json.dump(
                 {

@@ -34,10 +34,7 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 TINY = {"BENCH_TARGET_MB": "2", "BENCH_BASELINE_MB": "1", "BENCH_ZIPF_MB": "1",
         "BENCH_METRICS_OVERHEAD_MB": "1", "BENCH_DEVICE_RUNS": "1",
         "BENCH_OVERHEAD_RUNS": "1", "BENCH_PROBE_TIMEOUT_S": "120",
-        "BENCH_DEVICE_TIMEOUT_S": "240",
-        # One torch thread per leg: the suite runs several test processes
-        # at once, and oversubscribed CPU kernels stall the legs' clocks.
-        "OMP_NUM_THREADS": "1"}
+        "BENCH_DEVICE_TIMEOUT_S": "240"}
 
 
 @pytest.fixture(scope="module")

@@ -65,7 +65,7 @@ def _child_env(poisoned_path, bench_dir, **env) -> dict:
     child = {k: v for k, v in os.environ.items()
              if not k.startswith(("BENCH_", "MR_")) and k != "PYTHONPATH"}
     child.update(PYTHONPATH=str(poisoned_path[0]), BENCH_DIR=str(bench_dir),
-                 BENCH_DEVICE="cpu", OMP_NUM_THREADS="1", **env)
+                 BENCH_DEVICE="cpu", **env)
     return child
 
 
@@ -222,7 +222,6 @@ def chaos_runs(tmp_path_factory, poisoned_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(bench_torch, "DEVICE", "cpu")
         mp.setenv("PYTHONPATH", str(poisoned_path[0]))
-        mp.setenv("OMP_NUM_THREADS", "1")
         mp.delenv("MR_CHAOS", raising=False)
         mp.delenv("BENCH_MAP_ENGINE", raising=False)
         base = bench_torch._chaos_cluster("baseline", root, None, False)
@@ -337,7 +336,6 @@ def test_slow_pair_leg_on_cpu(mode, name, tmp_path, poisoned_path):
 def test_service_run_serves_repeats_from_the_cache(tmp_path, poisoned_path, monkeypatch):
     monkeypatch.setattr(bench_torch, "DEVICE", "cpu")
     monkeypatch.setenv("PYTHONPATH", str(poisoned_path[0]))
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.delenv("BENCH_MAP_ENGINE", raising=False)
     r = bench_torch._service_run(4, "fifo", tmp_path / "service")
     assert r["ok"], r

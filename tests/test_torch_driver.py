@@ -157,6 +157,42 @@ def test_cli_run_and_merge(corpus, reference, tmp_path):
     assert (tmp_path / "got.txt").read_bytes() == (tmp_path / "want.txt").read_bytes()
 
 
+def test_word_count_exact_at_torch_default_threads(tmp_path):
+    # The repository's conftest.py runs torch at one OpenMP thread in every
+    # test process; this run takes torch's default team of threads, on a
+    # smaller corpus of the same two kinds (torch's thread team makes the
+    # CPU path several times slower on small chunks).
+    corpus = tmp_path / "in"
+    corpus.mkdir()
+    (corpus / "a.txt").write_bytes(_corpus(3, 30_000, 6_000))
+    (corpus / "b.txt").write_bytes(_corpus(4, 20_000, 300))
+    out = tmp_path / "out"
+    env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; from mapreduce_rust_tpu_torch.__main__ import main; "
+         "print('threads', torch.get_num_threads()); sys.exit(main(sys.argv[1:]))",
+         "run", "--device", "cpu", "--input", str(corpus), "--output", str(out),
+         "--work", str(tmp_path / "work"), "--reduce-n", "4", "--chunk-mb", "0.0625"],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env={**env, "PYTHONPATH": str(REPO)},
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    threads = int(r.stdout.split("threads ", 1)[1].split()[0])
+    assert threads > 1 or (os.cpu_count() or 1) < 4, r.stdout
+    got = {}
+    for path in out.glob("mr-*.txt"):
+        for line in path.read_text(encoding="utf-8").splitlines():
+            word, count = line.rsplit(" ", 1)
+            assert word not in got, word
+            got[word] = int(count)
+    want = {}
+    for path in sorted(corpus.glob("*.txt")):
+        for w, c in reference_word_counts(path.read_bytes()).items():
+            want[w] = want.get(w, 0) + c
+    assert got == want
+
+
 @pytest.mark.parametrize("window", [None, 1 << 12])
 def test_chunk_stream_matches_reference(corpus, window):
     import io

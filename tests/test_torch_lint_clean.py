@@ -3,8 +3,9 @@
 ``python -m mapreduce_rust_tpu_torch lint`` checks the port package,
 ``tests/``, ``bench_torch.py`` and ``__graft_entry_torch__.py`` with the
 JAX package's 24 rules (six of them widened with torch twins) and must
-exit 0 with no finding. The command is torch-free: a ``main(['lint'])``
-run loads none of torch, jax or the JAX package. ``--check-trace``
+exit 0 with no finding, in the JSON and in the text format. The command
+is torch-free: the process that runs both loads none of torch, jax or the
+JAX package. ``--check-trace``
 accepts a trace the port's Tracer wrote and rejects an unbalanced one.
 """
 
@@ -12,6 +13,8 @@ import json
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 from mapreduce_rust_tpu.analysis.rules import ALL_RULES as REF_RULES
 from mapreduce_rust_tpu.analysis.rules import PROGRAM_RULES as REF_PROGRAM_RULES
@@ -32,11 +35,38 @@ def _py_files(root: pathlib.Path) -> int:
     return sum(1 for p in root.rglob("*.py") if "__pycache__" not in p.parts)
 
 
-def test_lint_exits_zero_on_the_port():
-    r = subprocess.run(
-        [sys.executable, "-m", "mapreduce_rust_tpu_torch", "lint", "--format", "json"],
-        capture_output=True, text=True, timeout=180, cwd=REPO, env=ENV,
-    )
+#: ``python -m mapreduce_rust_tpu_torch lint --format json`` through runpy,
+#: as ``-m`` runs it, then ``main(['lint'])`` in the text format with its
+#: report on stderr, then the backends the two loaded, on stderr.
+_LINT = """
+import contextlib, runpy, sys
+sys.argv = ["mapreduce_rust_tpu_torch", "lint", "--format", "json"]
+try:
+    runpy.run_module("mapreduce_rust_tpu_torch", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+from mapreduce_rust_tpu_torch.__main__ import main
+with contextlib.redirect_stdout(sys.stderr):
+    text_rc = main(["lint"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("torch", "jax", "mapreduce_rust_tpu"))
+print("TEXT_RC", text_rc, file=sys.stderr)
+print("LOADED", bad, file=sys.stderr)
+sys.exit(rc or text_rc or (3 if bad else 0))
+"""
+
+
+@pytest.fixture(scope="module")
+def lint_run():
+    """The whole-tree lint in both formats, once for the module: the exit
+    code, the JSON report and the modules the runs loaded."""
+    return subprocess.run([sys.executable, "-c", _LINT], capture_output=True,
+                          text=True, timeout=180, cwd=REPO, env=ENV)
+
+
+def test_lint_exits_zero_on_the_port(lint_run):
+    r = lint_run
     assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-1000:])
     doc = json.loads(r.stdout)
     assert doc["ok"] is True and doc["findings"] == []
@@ -48,20 +78,11 @@ def test_lint_exits_zero_on_the_port():
     assert len(doc["rules"]) == 24
 
 
-def test_lint_cli_loads_no_torch_or_jax():
-    r = subprocess.run(
-        [sys.executable, "-c",
-         "import sys\n"
-         "from mapreduce_rust_tpu_torch.__main__ import main\n"
-         "rc = main(['lint'])\n"
-         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-         "('torch', 'jax', 'mapreduce_rust_tpu'))\n"
-         "print('LOADED', bad)\n"
-         "sys.exit(rc if rc else (3 if bad else 0))\n"],
-        capture_output=True, text=True, timeout=180, cwd=REPO, env=ENV,
-    )
+def test_lint_cli_loads_no_torch_or_jax(lint_run):
+    r = lint_run
     assert r.returncode == 0, (r.returncode, r.stdout[-2000:], r.stderr[-500:])
-    assert "LOADED []" in r.stdout
+    assert "TEXT_RC 0" in r.stderr
+    assert "LOADED []" in r.stderr
 
 
 def test_check_trace_accepts_a_port_trace(tmp_path, capsys):

@@ -82,7 +82,6 @@ for name, (corpus, app_name, app_kw, fields) in plan.items():
 _PORT_WORKER = _HEAD + textwrap.dedent("""
     import numpy as np
     import torch
-    torch.set_num_threads(1)
     from mapreduce_rust_tpu_torch.parallel.distributed import (
         cluster_info, initialize, is_federated, shutdown)
     initialize(f"127.0.0.1:{port}", nproc, pid, device="cpu")
@@ -212,7 +211,7 @@ def clusters(tmp_path_factory):
     for job in plan.values():
         job[3] = {**BASE, **job[3]}
     (base / "plan.json").write_text(json.dumps({**plan, "_stats": STATS}))
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
     jax_procs = _launch(base, _JAX_WORKER, env)
     port_procs = _launch(base, _PORT_WORKER, env)
     port = _collect(port_procs, "port", 240)
@@ -314,7 +313,7 @@ def test_one_step_matches_one_process_mesh(clusters):
 def test_cli_distributed(clusters, tmp_path):
     base = clusters["base"]
     port = _free_port()
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "mapreduce_rust_tpu_torch", "run", "--device", "cpu",

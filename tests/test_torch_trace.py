@@ -149,6 +149,54 @@ def test_tracer_events_match_reference(tmp_path):
     assert streams[0] == streams[1]
 
 
+def test_concurrent_writers_to_one_path_never_tear_it(tmp_path):
+    """Two in-process workers may share a pid-tagged trace and manifest
+    path. Eight threads, each with its own Tracer, write one trace path 20
+    times, and eight more write eight manifests to one path 20 times: every
+    write returns, each file left is one whole document, and no temporary
+    file stays behind."""
+    import json
+    import threading
+
+    trace_path = tmp_path / "t-w1.json"
+    manifest_path = tmp_path / "m-w1.json"
+    tracers, traces, manifests = [], [], []
+    for i in range(8):
+        tr = trace.Tracer(tag=f"w{i}")
+        for j in range(400):
+            tr.add_span("chunk.step", j, j + 0.5, args={"chunk": j, "writer": i})
+        tracers.append(tr)
+        traces.append({"traceEvents": tr.events(), "displayTimeUnit": "ms",
+                       "metadata": tr.metadata()})
+        manifests.append({"writer": i, "rows": [[i, j] for j in range(2000)]})
+
+    barrier = threading.Barrier(16)
+    errors = []
+
+    def run(write):
+        try:
+            barrier.wait()
+            for _ in range(20):
+                write()
+        except Exception as e:  # reported by the assert below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(
+        lambda tr=tr: tr.write(str(trace_path)),)) for tr in tracers]
+    threads += [threading.Thread(target=run, args=(
+        lambda m=m: telemetry.write_manifest(str(manifest_path), m),))
+        for m in manifests]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert json.loads(trace_path.read_text()) in traces
+    assert json.loads(manifest_path.read_text()) in manifests
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["m-w1.json", "t-w1.json"]
+
+
 # ---- metrics registry, JobStats and the manifest ----
 
 def test_registry_matches_reference():
