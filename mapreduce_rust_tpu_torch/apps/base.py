@@ -55,9 +55,11 @@ class App:
     #: 2) at bind time, before anything streams. A class attribute too.
     requires_corpora = 0
 
-    def device_map(self, kv: KVBatch, doc_id: int) -> KVBatch:
+    def device_map(self, kv: KVBatch, doc_id) -> KVBatch:
         """On-device per-chunk transform; doc_id is the chunk's index in the
-        job's flat input listing (every corpus's files, concatenated)."""
+        job's flat input listing (every corpus's files, concatenated): an
+        int, or a 0-d int32 tensor on the device in a captured step
+        (runtime/step_graph.py), so it is never read back to the host."""
         return kv
 
     @property

@@ -74,7 +74,7 @@ class Grep(InvertedIndex):
     name: str = "grep"
     query: tuple[str, ...] = ()
 
-    def device_map(self, kv: KVBatch, doc_id: int) -> KVBatch:
+    def device_map(self, kv: KVBatch, doc_id) -> KVBatch:
         q1, q2 = _query_tensors(tuple(self.query), kv.k1.device)
         match = ((kv.k1[:, None] == q1) & (kv.k2[:, None] == q2)).any(dim=1)
         valid = kv.valid & match
@@ -85,7 +85,7 @@ class Grep(InvertedIndex):
         return KVBatch(
             k1=torch.where(valid, kv.k1, SENTINEL_I32),
             k2=torch.where(valid, kv.k2, SENTINEL_I32),
-            value=valid.to(torch.int32) * int(doc_id),
+            value=valid.to(torch.int32) * doc_id,
             valid=valid,
         )
 

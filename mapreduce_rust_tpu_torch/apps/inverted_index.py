@@ -26,10 +26,11 @@ class InvertedIndex(App):
     name: str = "inverted_index"
     combine_op: str = "distinct"
 
-    def device_map(self, kv: KVBatch, doc_id: int) -> KVBatch:
-        # valid * doc_id stays int32 and needs no host→device copy.
+    def device_map(self, kv: KVBatch, doc_id) -> KVBatch:
+        # valid * doc_id stays int32 whether doc_id is an int or a 0-d int32
+        # tensor on the device (a captured step's static doc id).
         return KVBatch(k1=kv.k1, k2=kv.k2,
-                       value=kv.valid.to(torch.int32) * int(doc_id), valid=kv.valid)
+                       value=kv.valid.to(torch.int32) * doc_id, valid=kv.valid)
 
     def host_values(self, counts, doc_id: int):
         """Every unique term of the window posts this window's doc_id — the

@@ -22,6 +22,10 @@ look-back, see the source's header):
 Each wrapper launches the kernel on a CUDA tensor and counts the launch in
 its ``launches`` attribute (under a lock: several workers of one process
 launch from their own threads); on a CPU tensor it returns its plain version.
+A CUDA graph that holds the fused entry (runtime/step_graph.py) is built
+under :func:`uncounted`, and each replay counts its launch with
+:func:`count_launch`, so ``tokenize_hash.launches`` counts the chunks
+scanned either way.
 Any other input raises; nothing falls back. The CPU path and the tests use
 the plain versions; on the card they are only the kernel's check.
 
@@ -31,6 +35,7 @@ or 13 (tokenize_hash) written per input byte.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -53,6 +58,25 @@ TILE_BYTES = 4096
 
 
 _count_lock = threading.Lock()
+_muted = threading.local()  # .on: this thread's wrapper calls are not counted
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Wrapper calls on this thread inside the block count no launch: a
+    graph's warm-up scans no chunk, and its capture launches nothing."""
+    _muted.on = True
+    try:
+        yield
+    finally:
+        _muted.on = False
+
+
+def count_launch() -> None:
+    """Count one launch of the fused entry: the wrapper's own, or one a
+    graph replay made."""
+    with _count_lock:
+        tokenize_hash.launches += 1
 
 
 def _i32(x) -> int:
@@ -211,8 +235,8 @@ def tokenize_hash(chunk: torch.Tensor, last_is_boundary: bool = True):
         return tokenize_hash_reference(chunk, last_is_boundary)
     outs = _launch("tokenize_hash", chunk, (torch.int32,) * 3 + (torch.bool,),
                    int(bool(last_is_boundary)))
-    with _count_lock:
-        tokenize_hash.launches += 1
+    if not getattr(_muted, "on", False):
+        count_launch()
     return outs
 
 

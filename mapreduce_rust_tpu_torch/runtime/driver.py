@@ -19,7 +19,10 @@ PyTorch runs asynchronously on the card: while the device works on chunk
 k the host reads, normalizes and chunks k+1, and an ingest pool runs the
 native dictionary scan (native/host.scan_unique_raw) whose results fold
 into the egress dictionary. The overflow and eviction counters of a whole
-``Config.pipeline_depth`` window come back in ONE device→host copy.
+``Config.pipeline_depth`` window come back in ONE device→host copy. On a
+card the step is captured once into a CUDA graph and each chunk replays
+it from a ring of pinned staging buffers (runtime/step_graph.py); on the
+CPU it runs op by op.
 
 Capacity faults are handled, not asserted:
 - per-chunk distinct keys > partial_capacity → the step clamps its update
@@ -113,6 +116,7 @@ from mapreduce_rust_tpu_torch.runtime.chunker import (
     utf8_safe_cut,
 )
 from mapreduce_rust_tpu_torch.runtime import spill as spill_io
+from mapreduce_rust_tpu_torch.runtime import step_graph
 from mapreduce_rust_tpu_torch.runtime.dictionary import (
     Dictionary,
     ShardedDictionary,
@@ -691,34 +695,46 @@ class _IngestStream:
         self._thread.join(timeout=5)
 
 
-def _to_device(data: np.ndarray, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(host tensor, device tensor) of a chunk. On a card the host side is
-    pinned and the copy is asynchronous: the caller keeps the host tensor
-    alive until the copy is known to be done."""
-    host = torch.from_numpy(data)
-    if device.type == "cpu":
-        return host, host
-    host = host.pin_memory()
-    return host, host.to(device, non_blocking=True)
-
-
 def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
                    acc: HostAccumulator, dictionary: Dictionary,
                    doc_id_offset: int = 0,
                    device: "torch.device | None" = None) -> None:
     """The device engine over ``inputs``; doc ids start at
     ``doc_id_offset`` (a worker's map task streams one file, its task id).
-    The device comes from ``cfg.device`` unless the caller resolved it."""
+    The device comes from ``cfg.device`` unless the caller resolved it.
+    On a card the step of each chunk replays a captured CUDA graph that
+    this job checks out for its whole stream; on the CPU it runs op by op
+    (runtime/step_graph.py)."""
     if device is None:
         device = select_device(cfg.device)
     u_cap = cfg.effective_partial_capacity()
     depth = max(cfg.pipeline_depth, 1)
-    map_combine, merge = make_step_fns(app, u_cap)
-    slow_fns = None  # full-width replay step, built only if ever needed
+    if device.type == "cuda":
+        key = (device, step_graph.app_key(app), u_cap, cfg.chunk_bytes,
+               cfg.merge_capacity, depth)
+        launcher = step_graph.checkout(key, lambda: step_graph.GraphStep(
+            *make_step_fns(app, u_cap), chunk_bytes=cfg.chunk_bytes,
+            merge_capacity=cfg.merge_capacity, slots=2 * depth + 1, device=device))
+    else:
+        launcher = contextlib.nullcontext((step_graph.EagerStep(
+            *make_step_fns(app, u_cap), cfg.merge_capacity, device), False))
+    with launcher as (step, captured):
+        stats.step_graph_captures += int(captured)
+        _stream_steps(cfg, app, inputs, stats, acc, dictionary, doc_id_offset,
+                      step, depth)
+        stats.step_graph_replays += step.replays
+    trace_counter("step_graph", replays=stats.step_graph_replays,
+                  captures=stats.step_graph_captures)
 
-    state = KVBatch.empty(cfg.merge_capacity, device)
-    # (ovf, ev_count, evicted, chunk_host, doc_id) per dispatched chunk;
-    # chunk_host also keeps the pinned source of the async copy alive.
+
+def _stream_steps(cfg: Config, app: App, inputs, stats: JobStats,
+                  acc: HostAccumulator, dictionary: Dictionary,
+                  doc_id_offset: int, step, depth: int) -> None:
+    """``_stream_single``'s loop: dispatch each chunk's step through
+    ``step`` and resolve them a window at a time."""
+    slow_fns = None  # full-width replay step, built only if ever needed
+    # (handle, doc_id) per dispatched chunk; the handle keeps what the
+    # drain reads (counters, evicted tail, the chunk's host bytes) alive.
     pending: collections.deque = collections.deque()
 
     def spill(evicted: KVBatch, ev_n: int) -> None:
@@ -729,14 +745,15 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
     def replay_chunk(chunk_host: torch.Tensor, doc_id: int) -> None:
         # More distinct keys in the chunk than partial_capacity: the fast
         # step clamped its update to empty, so re-run the whole chunk at
-        # full width. Exact, never silent.
-        nonlocal state, slow_fns
+        # full width, op by op. Exact, never silent.
+        nonlocal slow_fns
         stats.partial_overflow_replays += 1
         if slow_fns is None:
             slow_fns = make_step_fns(app, cfg.chunk_bytes)
         with trace_span("chunk.replay"):
-            update, _ = slow_fns[0](chunk_host.to(device, non_blocking=True), doc_id)
-            state, evicted, ev_count = slow_fns[1](state, update)
+            update, _ = slow_fns[0](chunk_host.to(step.device, non_blocking=True),
+                                    doc_id)
+            step.state, evicted, ev_count = slow_fns[1](step.state, update)
             ev_n = int(ev_count)
             if ev_n > 0:
                 spill(evicted, ev_n)
@@ -749,20 +766,18 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
         batch = [pending.popleft() for _ in range(n)]
         t0 = time.perf_counter()
         with trace_span("device.drain", steps=n):
-            flat = torch.stack([x for (ovf, evc, *_rest) in batch for x in (ovf, evc)])
-            counts = flat.cpu().tolist()
+            counts = step.counts([h for h, _doc in batch])
         dt = time.perf_counter() - t0
         stats.device_wait_s += dt
         stats.record_hist("device.drain_s", dt)
         _sample_device_memory(stats)
-        for (_ovf, _evc, evicted, chunk_host, doc_id), ovf_n, ev_n in zip(
-            batch, counts[::2], counts[1::2]
-        ):
+        for (h, doc_id), (ovf_n, ev_n) in zip(batch, counts):
             if ev_n > 0:
                 with trace_span("spill", keys=int(ev_n)):
-                    spill(evicted, ev_n)
+                    spill(step.evicted(h), ev_n)
             if ovf_n > 0:
-                replay_chunk(chunk_host, doc_id)
+                replay_chunk(step.chunk_host(h), doc_id)
+            step.release(h)
 
     ingest = _IngestStream(cfg, inputs, stats, dictionary, app.host_mask,
                            doc_id_offset,
@@ -770,13 +785,7 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
     try:
         for chunk in ingest:
             with trace_span("chunk.dispatch"):
-                chunk_host, chunk_dev = _to_device(chunk.data, device)
-                update, ovf = map_combine(chunk_dev, chunk.doc_id)
-                # Merge dispatches immediately — an overflowed update is
-                # empty on the device, so merging before the flag reaches
-                # the host is safe.
-                state, evicted, ev_count = merge(state, update)
-                pending.append((ovf, ev_count, evicted, chunk_host, chunk.doc_id))
+                pending.append((step.dispatch(chunk.data, chunk.doc_id), chunk.doc_id))
             # Keep one window in flight while draining the previous one.
             if len(pending) >= 2 * depth:
                 drain(depth)
@@ -785,7 +794,7 @@ def _stream_single(cfg: Config, app: App, inputs, stats: JobStats,
         ingest.close(abort=True)
         raise
     ingest.close()
-    acc.add_batch(state)
+    acc.add_batch(step.state)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,11 @@ class JobStats:
     spill_events: int = 0         # merges whose evicted tail was non-empty
     spilled_keys: int = 0         # records moved device → host accumulator
     partial_overflow_replays: int = 0  # chunks re-run on the full-width path
+    # Device engine on a card (runtime/step_graph.py): chunks whose step ran
+    # as a replay of the captured graph, and the graphs this job captured
+    # (0 when an idle one of the process served it).
+    step_graph_replays: int = 0
+    step_graph_captures: int = 0
     # Mesh engine counters (not ported yet: they stay 0 on one device).
     bucket_skew_replays: int = 0
     halo_truncations: int = 0

@@ -105,8 +105,9 @@ def test_output_parity(corpus, reference, tmp_path, reduce_n, monkeypatch):
     monkeypatch.setattr(driver, "scan_unique_raw", spy)
     before = hash_scan.launches, tokenize_hash.launches
     res = run_job(port_config(corpus, tmp_path, "parity", reduce_n))
-    # The CPU path never launches the kernel.
+    # The CPU path never launches the kernel, and runs the step op by op.
     assert (hash_scan.launches, tokenize_hash.launches) == before
+    assert res.stats.step_graph_replays == res.stats.step_graph_captures == 0
     assert len(scanned) == res.stats.chunks == ref.stats.chunks
     assert_same_files(ref.output_files, res.output_files)
     assert res.stats.distinct_keys == ref.stats.distinct_keys

@@ -226,10 +226,16 @@ def test_jobstats_manifest_fields_match_reference():
         s.phase_seconds["stream"] = 1.8
         s.record_hist("device.drain_s", 0.003)
         s.register_writer()
-    assert telemetry.stats_to_dict(port) == jax_telemetry.stats_to_dict(ref)
+    # The port's stats are the reference's plus the captured step's two
+    # counters (runtime/step_graph.py), which XLA has no counterpart of.
+    own = {"step_graph_replays": 0, "step_graph_captures": 0}
+    d = telemetry.stats_to_dict(port)
+    assert {k: d.pop(k) for k in own} == own
+    assert d == jax_telemetry.stats_to_dict(ref)
     assert port.bottleneck == ref.bottleneck
     m = telemetry.build_manifest(None, stats=port, app_name="word_count")
     jm = jax_telemetry.build_manifest(None, stats=ref, app_name="word_count")
+    assert {k: m["stats"].pop(k) for k in own} == own
     assert m["stats"] == jm["stats"]
     # Only the platform stamp differs (torch/CUDA in place of jax).
     diff = jax_telemetry.diff_manifests(jm, m)
