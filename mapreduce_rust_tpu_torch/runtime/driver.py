@@ -1097,7 +1097,7 @@ class _DispatchPlane:
         )
         self.merge_packed = make_packed_merge_fn(app, self.cap)
         self.state = KVBatch.empty(cfg.merge_capacity, device)
-        self.pending: collections.deque = collections.deque()  # (ev, evicted)
+        self.pending: collections.deque = collections.deque()  # (ev, evicted, events)
         self._stager = _PackStager(self.cap, device)
         if self.coalesce:
             # Ping-pong staging pair: the native merge writes into the
@@ -1110,6 +1110,8 @@ class _DispatchPlane:
         # Plane-local tallies: the dispatch thread owns them; the router
         # publishes copies per window and collect() writes the finals.
         self.dispatch_s = 0.0        # thread seconds in scatter/pack/copy/merge
+        self.coalesce_s = 0.0        # of which: sort + native staging combine
+        self.merge_device_s = 0.0    # card seconds in the packed merges
         self.stall_s = 0.0           # router blocked on a full queue + join
         self.idle_s = 0.0            # thread seconds waiting for windows
         self.device_wait_s = 0.0
@@ -1204,16 +1206,26 @@ class _DispatchPlane:
         self.dispatch_s += time.perf_counter() - t0
 
     def _coalesce_window(self, keys: np.ndarray, values) -> None:
-        packed = (keys[:, 0].astype(np.uint64) << np.uint64(32)) \
-            | keys[:, 1].astype(np.uint64)
-        order = np.argsort(packed, kind="stable")
-        pk = np.ascontiguousarray(packed[order])
-        pv = np.ascontiguousarray(np.asarray(values, dtype=np.int64)[order])
-        n = len(pk)
+        n = len(keys)
         if self._sn + n > self.stage_cap:
             # The merged result may not fit: flush first. Conservative
             # (duplicates could have made it fit), but deterministic.
             self._flush_staging()
+        t0 = time.perf_counter()
+        with trace_span("dispatch.coalesce", n=n):
+            packed = (keys[:, 0].astype(np.uint64) << np.uint64(32)) \
+                | keys[:, 1].astype(np.uint64)
+            order = np.argsort(packed, kind="stable")
+            pk = np.ascontiguousarray(packed[order])
+            pv = np.ascontiguousarray(np.asarray(values, dtype=np.int64)[order])
+            if n < self.stage_cap:
+                cur, nxt = self._scur, 1 - self._scur
+                m = coalesce_updates_into(
+                    self._skeys[cur], self._svals[cur], self._sn, pk, pv,
+                    self._skeys[nxt], self._svals[nxt],
+                )
+                self._scur, self._sn = nxt, m
+        self.coalesce_s += time.perf_counter() - t0
         if n >= self.stage_cap:
             # A window wider than the whole staging buffer ships directly,
             # in sorted cap-sized slices.
@@ -1221,12 +1233,6 @@ class _DispatchPlane:
                 self._dispatch_packed(pk[start: start + self.cap],
                                       pv[start: start + self.cap])
             return
-        cur, nxt = self._scur, 1 - self._scur
-        m = coalesce_updates_into(
-            self._skeys[cur], self._svals[cur], self._sn, pk, pv,
-            self._skeys[nxt], self._svals[nxt],
-        )
-        self._scur, self._sn = nxt, m
         if self._sn >= self.fill_threshold:
             self._flush_staging()
 
@@ -1237,12 +1243,13 @@ class _DispatchPlane:
             return
         cur, n = self._scur, self._sn
         self._sn = 0
-        for start in range(0, n, self.cap):
-            # Clip the tail at the FILL, not the buffer: slots beyond n
-            # are stale and must never ship as records.
-            end = min(start + self.cap, n)
-            self._dispatch_packed(self._skeys[cur][start:end],
-                                  self._svals[cur][start:end])
+        with trace_span("dispatch.flush", n=n):
+            for start in range(0, n, self.cap):
+                # Clip the tail at the FILL, not the buffer: slots beyond n
+                # are stale and must never ship as records.
+                end = min(start + self.cap, n)
+                self._dispatch_packed(self._skeys[cur][start:end],
+                                      self._svals[cur][start:end])
 
     def _dispatch_packed(self, pk: np.ndarray, pv: np.ndarray) -> None:
         # int64 staging counts → the uint32 bit pattern the packed layout
@@ -1259,10 +1266,18 @@ class _DispatchPlane:
         _chaos_slow_dispatch(self.merge_dispatches)
         self._stager.pack(k1, k2, vals)
         with trace_span("dispatch.submit", n=len(k1)):
-            self.state, evicted, ev_count = self.merge_packed(
-                self.state, self._stager.to_device()
-            )
-        self.pending.append((ev_count, evicted))
+            flat = self._stager.to_device()
+            # One event pair on this thread's stream around the merge's
+            # ops (the copy before them left out), read in _drain.
+            timed = None
+            if self.device.type == "cuda":
+                timed = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                timed[0].record()
+            self.state, evicted, ev_count = self.merge_packed(self.state, flat)
+            if timed is not None:
+                timed[1].record()
+        self.pending.append((ev_count, evicted, timed))
         self.merge_dispatches += 1
         self.records_shipped += len(k1)
         self.submit_hist.add(time.perf_counter() - t0)
@@ -1277,12 +1292,16 @@ class _DispatchPlane:
         batch = [self.pending.popleft() for _ in range(n)]
         t0 = time.perf_counter()
         with trace_span("device.drain", steps=n):
-            counts = torch.stack([ev for ev, _ in batch]).cpu().tolist()
+            counts = torch.stack([ev for ev, _, _ in batch]).cpu().tolist()
         dt = time.perf_counter() - t0
         self.device_wait_s += dt
         self.drain_hist.add(dt)
+        # The readback above waited for every op launched before it, so
+        # each drained merge's end event has completed: no further wait.
+        self.merge_device_s += sum(t[0].elapsed_time(t[1]) for _, _, t in batch
+                                   if t is not None) / 1e3
         _sample_device_memory(self.stats)
-        for (_ev, evicted), ev_n in zip(batch, counts):
+        for (_ev, evicted, _timed), ev_n in zip(batch, counts):
             if ev_n > 0:
                 self.spill_events += 1
                 self.spilled_keys += ev_n
@@ -1377,6 +1396,8 @@ class _DispatchPlane:
         are benign-stale at worst, so the live ring sees a dispatch-bound
         job DURING the run. collect() writes the exact finals."""
         stats.dispatch_s = self.dispatch_s
+        stats.coalesce_s = self.coalesce_s
+        stats.merge_device_s = self.merge_device_s
         stats.dispatch_stall_s = self.stall_s
         stats.merge_dispatches = self.merge_dispatches
         stats.merge_fill_frac = round(self.mean_fill_frac(), 6)
@@ -1389,6 +1410,8 @@ class _DispatchPlane:
         called with the dispatch thread finished or reaped (its counters
         are plain cells written by that thread alone)."""
         self.publish_live(stats)
+        trace_counter("dispatch", coalesce_s=self.coalesce_s,
+                      merge_device_s=self.merge_device_s)
         for name, h in (("dispatch.submit_s", self.submit_hist),
                         ("device.drain_s", self.drain_hist)):
             if h.count:

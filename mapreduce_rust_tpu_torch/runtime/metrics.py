@@ -75,6 +75,9 @@ class JobStats:
     host_glue_s: float = 0.0      # router work per window, stalls excluded
     scan_wait_s: float = 0.0      # router blocked on the oldest scan
     dispatch_s: float = 0.0       # dispatch-thread scatter/pack/copy/merge
+    coalesce_s: float = 0.0       # of which: sort + native staging combine
+    merge_device_s: float = 0.0   # card seconds in the packed merges, from
+                                  # one CUDA event pair each (0 on the CPU)
     dispatch_stall_s: float = 0.0  # router blocked on the dispatch plane
     dispatch_mode: str = ""       # "sync"|"async" [+coalesce]
     merge_dispatches: int = 0     # packed device merges
@@ -580,6 +583,8 @@ def jobstats_collector(stats: JobStats):
             "job.spill_stall_s": round(stats.spill_stall_s, 6),
             "job.spill_bytes": stats.spill_bytes,
             "job.dispatch_s": round(stats.dispatch_s, 6),
+            "job.coalesce_s": round(stats.coalesce_s, 6),
+            "job.merge_device_s": round(stats.merge_device_s, 6),
             "job.dispatch_stall_s": round(stats.dispatch_stall_s, 6),
             "job.merge_dispatches": stats.merge_dispatches,
             "job.merge_fill_frac": round(stats.merge_fill_frac, 6),

@@ -227,8 +227,10 @@ def test_jobstats_manifest_fields_match_reference():
         s.record_hist("device.drain_s", 0.003)
         s.register_writer()
     # The port's stats are the reference's plus the captured step's two
-    # counters (runtime/step_graph.py), which XLA has no counterpart of.
-    own = {"step_graph_replays": 0, "step_graph_captures": 0}
+    # counters (runtime/step_graph.py), which XLA has no counterpart of,
+    # and the dispatch plane's coalesce and device-merge seconds.
+    own = {"step_graph_replays": 0, "step_graph_captures": 0,
+           "coalesce_s": 0.0, "merge_device_s": 0.0}
     d = telemetry.stats_to_dict(port)
     assert {k: d.pop(k) for k in own} == own
     assert d == jax_telemetry.stats_to_dict(ref)
